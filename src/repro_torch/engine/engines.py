@@ -1,0 +1,156 @@
+"""The built-in engines behind :func:`repro_torch.engine.cluster`.
+
+========== =============================================================
+name       backing pipeline
+========== =============================================================
+brute      O(n^2) host oracle (``brute_dbscan``) -- the ground truth the
+           conformance suite holds every other engine to.
+grit       paper-faithful host GriT-DBSCAN (Alg 6: grid tree +
+           FastMerging + BFS over seed grids).
+grit-ldf   host GriT-DBSCAN-LDF (union-find, low-density-first, §5.2).
+device     the device pipeline with *adaptive* static caps: estimated
+           from grid statistics, grown geometrically on overflow (never
+           silently truncated).  Plain broadcast distance plane (the
+           in-pipeline oracle).
+device-kernels
+           the same pipeline with ``use_kernels=True``: core/border
+           distances go through the hand-written CUDA kernels
+           ``eps_count_batch`` / ``row_min_batch`` (see
+           ``repro_torch.kernels.ops``).
+========== =============================================================
+
+All engines take host numpy points and return
+:class:`~repro_torch.engine.result.ClusterResult` with labels in
+original point order.  The host engines ignore ``device``; the device
+engines run on the CUDA device unless the caller passes
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ..core.dbscan import brute_dbscan, grit_dbscan
+from ..core.validate import core_flags
+
+from .adaptive import adaptive_device_dbscan, resolve_device
+from .registry import register_engine
+from .result import ClusterResult
+
+
+@register_engine("brute", "O(n^2) host oracle (reference labels)")
+def _brute_engine(points, eps, min_pts, *, device=None, chunk: int = 2048,
+                  with_core: bool = True) -> ClusterResult:
+    t0 = time.perf_counter()
+    labels = brute_dbscan(points, eps, min_pts, chunk=chunk)
+    core = core_flags(points, eps, min_pts, chunk=chunk) if with_core \
+        else None
+    return ClusterResult.build(
+        labels, "brute", core=core,
+        stats={"n": len(points), "t_total": time.perf_counter() - t0})
+
+
+def _host_grit(points, eps, min_pts, variant: str, name: str,
+               **opts) -> ClusterResult:
+    r = grit_dbscan(points, eps, min_pts, variant=variant, **opts)
+    return ClusterResult.build(r.labels, name, core=r.core, grid=r.grid,
+                               stats=r.stats)
+
+
+@register_engine("grit", "host GriT-DBSCAN (paper Algorithm 6)")
+def _grit_engine(points, eps, min_pts, *, device=None,
+                 neighbor_engine: str = "tree", merge_engine: str = "fast",
+                 rng=None) -> ClusterResult:
+    return _host_grit(points, eps, min_pts, "grit", "grit",
+                      neighbor_engine=neighbor_engine,
+                      merge_engine=merge_engine, rng=rng)
+
+
+@register_engine("grit-ldf",
+                 "host GriT-DBSCAN-LDF (union-find, low-density first)")
+def _grit_ldf_engine(points, eps, min_pts, *, device=None,
+                     neighbor_engine: str = "tree",
+                     merge_engine: str = "fast", rng=None) -> ClusterResult:
+    return _host_grit(points, eps, min_pts, "ldf", "grit-ldf",
+                      neighbor_engine=neighbor_engine,
+                      merge_engine=merge_engine, rng=rng)
+
+
+def _pad_bucket(n: int, quantum: int = 128) -> int:
+    """Pad n up to a coarse bucket, so the padded-input path (masked
+    sentinel points) is the one every fit takes, as in the reference."""
+    return max(quantum, (n + quantum - 1) // quantum * quantum)
+
+
+# build_grids_device computes interval indices as floor((x - min)/side)
+# in f32 and clamps them into [0, PAD_ID] before the int32 cast.  Both
+# steps lose correctness silently once span/side gets large: beyond
+# ~2^22 the f32 quotient's ulp approaches a whole grid cell, so a
+# point's identifier can land cells away from its true cell and miss
+# its eps-neighbors' stencils, and near 2^30 a top-edge valid point can
+# round up onto the PAD_ID sentinel itself.  The device-backed engines
+# reject such inputs host-side here.  Host engines are unaffected
+# (float64/int64 identifiers).
+def _check_device_grid_range(pts: np.ndarray, eps: float,
+                             limit: int = 2 ** 22) -> None:
+    d = pts.shape[1]
+    side = float(eps) / np.sqrt(d)
+    span = float((pts.max(axis=0) - pts.min(axis=0)).max())
+    if span / side >= limit:
+        raise ValueError(
+            f"eps={eps} is too small for the coordinate span {span:.3g}: "
+            f"span/side = {span / side:.3g} >= 2^22 exceeds the f32 "
+            f"device-grid identifier range (grid assignment would "
+            f"quantize by whole cells); rescale the data, increase eps, "
+            f"or use a host engine (grit/grit-ldf)")
+
+
+def _device_impl(points, eps, min_pts, name: str, *, device=None, caps=None,
+                 use_kernels=None, max_retries: int = 8,
+                 growth: float = 2.0,
+                 pad_quantum: int = 128) -> ClusterResult:
+    """Device pipeline with the adaptive-cap loop.
+
+    Points are padded to a coarse size bucket (``pad_quantum``) with
+    masked-out sentinel points and placed on ``device``.
+    """
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    pts = np.asarray(points, np.float32)
+    n, d = pts.shape
+    _check_device_grid_range(pts, eps)
+    n_pad = _pad_bucket(n, pad_quantum)
+    padded = np.zeros((n_pad, d), np.float32)
+    padded[:n] = pts
+    valid = np.arange(n_pad) < n
+
+    res, attempts = adaptive_device_dbscan(
+        padded, eps, min_pts, caps, point_valid=valid,
+        max_retries=max_retries, growth=growth, use_kernels=use_kernels,
+        device=dev)
+    labels = res.labels[:n].cpu().numpy().astype(np.int64)
+    core = res.core[:n].cpu().numpy()
+    return ClusterResult.build(
+        labels, name, core=core, attempts=attempts,
+        overflow=attempts[-1]["overflow"],
+        stats={"n": n, "n_padded": n_pad, "retries": len(attempts) - 1,
+               "device": str(dev),
+               "t_total": time.perf_counter() - t0})
+
+
+@register_engine("device",
+                 "device pipeline, adaptive static caps, plain broadcast "
+                 "distance plane")
+def _device_engine(points, eps, min_pts, **opts) -> ClusterResult:
+    opts.setdefault("use_kernels", False)
+    return _device_impl(points, eps, min_pts, "device", **opts)
+
+
+@register_engine("device-kernels",
+                 "device pipeline with the hand-written CUDA distance "
+                 "kernels (eps_count_batch / row_min_batch)")
+def _device_kernels_engine(points, eps, min_pts, **opts) -> ClusterResult:
+    opts.setdefault("use_kernels", True)
+    return _device_impl(points, eps, min_pts, "device-kernels", **opts)

@@ -1,0 +1,104 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``<build dir>/lib<name>-<hash>.so``, then
+loaded with ``ctypes``.  The hash is of the source text and the flags,
+so an edited source never meets a stale library.  Nothing is built or
+loaded when this module is imported: :func:`load` does both at first
+use, and :func:`build_all` starts one compiler per source, all at once,
+for callers that want every kernel ready up front.
+
+The build directory is ``build/repro_torch`` at the root of the
+checkout (``REPRO_TORCH_BUILD_DIR`` overrides it for an installed
+package whose directory is not writable).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if override:
+        return Path(override)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels cannot be built on this machine")
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise KeyError(f"no kernel source {src}")
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, build_dir() / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists.  Returns
+    (process or None, temporary output, final library path)."""
+    src, lib = _target(name)
+    if lib.exists():
+        return None, None, lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib
+
+
+def _finish(name: str, proc, tmp, lib) -> Path:
+    if proc is None:
+        return lib
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, lib)          # atomic: a reader never sees half a file
+    return lib
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source of ``csrc/`` that has no library yet, one
+    compiler process per source, all running together."""
+    started = [(name, *_start(name)) for name in sources()]
+    return {name: _finish(name, proc, tmp, lib)
+            for name, proc, tmp, lib in started}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(_finish(name, *_start(name))))
+    return _LIBS[name]

@@ -1,0 +1,327 @@
+"""Public wrappers of the pairwise-distance kernels.
+
+Four functions, same signatures and contracts as ``repro.kernels.ops``:
+
+* ``eps_count(a, b, eps, valid_b)``  -> [M] int32
+* ``row_min(a, b, valid_b)``         -> ([M] f32, [M] int32)
+* ``eps_count_batch(a, b, eps, valid_b, valid_a, stop_at)`` -> [B, M] int32
+* ``row_min_batch(a, b, valid_b)``   -> ([B, M] f32, [B, M] int32)
+
+Dispatch is by where the tensors live.  CUDA tensors launch the
+hand-written kernels of ``csrc/pairwise.cu`` (built at first use, see
+``build.py``) or raise: there is no fallback on the card.  CPU tensors
+take the plain PyTorch versions in this module
+(``eps_count_batch_plain`` / ``row_min_batch_plain``), which are also
+what the kernels are held against on the card.  ``FORCE_REF = True``
+routes everything through the ``aa + bb - 2ab`` oracles of ``ref.py``.
+
+Padding and masking: the kernels take arbitrary ``M``, ``N`` and ``d``
+and read the validity masks themselves, so nothing is padded to tile
+multiples and no coordinate is folded to a far-away sentinel.  The
+distance is ``sum_k (a_k - b_k)^2`` in float32, term by term in the
+order of ``k``, in kernel and plain version alike.
+
+``stop_at`` contract: with ``stop_at=k`` the returned counts satisfy
+``min(count, k) == min(exact_count, k)`` on every row that ``valid_a``
+marks live (values below k are exact; values >= k mean "at least k").
+Thresholding at ``>= k`` is therefore exact.  The plain version returns
+full counts; the kernel stops scanning a slot once every live row of it
+has k hits.  Rows that ``valid_a`` masks receive counts the caller must
+ignore.
+
+No-candidate contract: a row none of whose candidates is valid reports
+``(inf, -1)`` from ``row_min`` / ``row_min_batch``; ties resolve to the
+lowest candidate index.
+
+``LAUNCHES`` counts kernel launches per wrapper (nothing else
+increments it), so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import build, ref
+
+FORCE_REF = False
+
+LAUNCHES: Dict[str, int] = {"eps_count": 0, "row_min": 0,
+                            "eps_count_batch": 0, "row_min_batch": 0}
+
+# the plain versions never hold a [B, P, chunk] tensor above this many
+# elements (128 MiB of float32)
+PLAIN_CHUNK_ELEMS = 1 << 25
+# query rows per slot when one candidate set is shared (unbatched calls)
+ROWS_PER_SLOT = 32
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _eps2(eps) -> float:
+    """eps squared as the float32 both planes compare against."""
+    if isinstance(eps, torch.Tensor):
+        eps = eps.item()
+    e = np.float32(eps)
+    return float(e * e)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def _chunk(bp: int, c: int) -> int:
+    return max(1, min(c, PLAIN_CHUNK_ELEMS // max(bp, 1)))
+
+
+def sq_dists_direct(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, P, d] x [B, c, d] -> [B, P, c]: sum_k (a_k - b_k)^2, the terms
+    added in the order of k (no [B, P, c, d] tensor is formed).  Also the
+    distance of the device pipeline's plain plane."""
+    d2 = None
+    for k in range(a.shape[-1]):
+        t = a[:, :, None, k] - b[:, None, :, k]
+        t = t * t
+        d2 = t if d2 is None else d2 + t
+    if d2 is None:
+        d2 = a.new_zeros((a.shape[0], a.shape[1], b.shape[1]))
+    return d2
+
+
+def eps_count_batch_plain(a: torch.Tensor, b: torch.Tensor, eps,
+                          valid_b: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of :func:`eps_count_batch`: masked direct-difference
+    reduce, chunked over candidates; returns full counts."""
+    B, P, _ = a.shape
+    C = b.shape[1]
+    eps2 = _eps2(eps)
+    cnt = torch.zeros((B, P), dtype=torch.int32, device=a.device)
+    step = _chunk(B * P, C)
+    for s in range(0, C, step):
+        hit = sq_dists_direct(a, b[:, s:s + step]) <= eps2
+        if valid_b is not None:
+            hit = hit & valid_b[:, None, s:s + step]
+        cnt += hit.sum(dim=2, dtype=torch.int32)
+    return cnt
+
+
+def row_min_batch_plain(a: torch.Tensor, b: torch.Tensor,
+                        valid_b: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`row_min_batch`: chunked over candidates,
+    strict ``<`` across chunks and first-occurrence ``argmin`` within
+    one, so ties resolve to the lowest index."""
+    B, P, _ = a.shape
+    C = b.shape[1]
+    best = torch.full((B, P), torch.inf, dtype=torch.float32, device=a.device)
+    arg = torch.full((B, P), -1, dtype=torch.int64, device=a.device)
+    step = _chunk(B * P, C)
+    for s in range(0, C, step):
+        d2 = sq_dists_direct(a, b[:, s:s + step])
+        if valid_b is not None:
+            d2 = torch.where(valid_b[:, None, s:s + step], d2, torch.inf)
+        cmin, carg = d2.min(dim=2)
+        better = cmin < best
+        best = torch.where(better, cmin, best)
+        arg = torch.where(better, carg + s, arg)
+    arg = torch.where(torch.isinf(best), torch.full_like(arg, -1), arg)
+    return best, arg.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# kernel launches
+# --------------------------------------------------------------------------
+
+_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library with its C signatures declared (built and
+    loaded at the first launch, never at import)."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("pairwise")
+        lib.grit_eps_count_batch.argtypes = [
+            _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _F, _I, _VP]
+        lib.grit_eps_count_batch.restype = _I
+        lib.grit_row_min_batch.argtypes = [
+            _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _VP]
+        lib.grit_row_min_batch.restype = _I
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, a, b, valid_b, valid_a, batched: bool):
+    """Validate the operands of a kernel launch; returns them as
+    (a f32, b f32, valid_b u8, valid_a u8 or None)."""
+    nd = 3 if batched else 2
+    if a.dim() != nd or b.dim() != nd:
+        raise ValueError(f"{name}: a and b must be {nd}-D, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[-1] != b.shape[-1] or a.shape[-1] < 1:
+        raise ValueError(f"{name}: feature dims differ or are empty: "
+                         f"{tuple(a.shape)} vs {tuple(b.shape)}")
+    if batched and a.shape[0] != b.shape[0]:
+        raise ValueError(f"{name}: batch sizes differ: {a.shape[0]} vs "
+                         f"{b.shape[0]}")
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    if valid_b is None:
+        valid_b = torch.ones(b.shape[:-1], dtype=torch.bool, device=b.device)
+    masks = [("valid_b", valid_b, b.shape[:-1])]
+    if valid_a is not None:
+        masks.append(("valid_a", valid_a, a.shape[:-1]))
+    for mname, m, shape in masks:
+        if m.dtype != torch.bool or tuple(m.shape) != tuple(shape):
+            raise ValueError(f"{name}: {mname} must be bool {tuple(shape)}, "
+                             f"got {m.dtype} {tuple(m.shape)}")
+    for tname, t in [("a", a), ("b", b)] + [(n, m) for n, m, _ in masks]:
+        if t.device != a.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, a is on "
+                             f"{a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    if a.numel() >= 2 ** 31 or b.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: operand too large for int32 indexing")
+    va = None if valid_a is None else valid_a.view(torch.uint8)
+    return a, b, valid_b.view(torch.uint8), va
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed "
+                           f"(cudaError {err})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_eps_count(name, a, b, vb, va, eps, stop_at, slots, rows_per_slot,
+                      rows_total, C, b_stride, vb_stride, out_shape):
+    out = torch.empty(out_shape, dtype=torch.int32, device=a.device)
+    if rows_total == 0:
+        return out
+    with torch.cuda.device(a.device):
+        err = _lib().grit_eps_count_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(),
+            None if va is None else va.data_ptr(), out.data_ptr(),
+            slots, rows_per_slot, rows_total, C, a.shape[-1], b_stride,
+            vb_stride, _eps2(eps), 0 if stop_at is None else int(stop_at),
+            _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _launch_row_min(name, a, b, vb, slots, rows_per_slot, rows_total, C,
+                    b_stride, vb_stride, out_shape):
+    mins = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+    args = torch.empty(out_shape, dtype=torch.int32, device=a.device)
+    if rows_total == 0:
+        return mins, args
+    with torch.cuda.device(a.device):
+        err = _lib().grit_row_min_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(), mins.data_ptr(),
+            args.data_ptr(), slots, rows_per_slot, rows_total, C,
+            a.shape[-1], b_stride, vb_stride, _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return mins, args
+
+
+# --------------------------------------------------------------------------
+# public wrappers
+# --------------------------------------------------------------------------
+
+def eps_count_batch(a: torch.Tensor, b: torch.Tensor, eps,
+                    valid_b: Optional[torch.Tensor] = None,
+                    valid_a: Optional[torch.Tensor] = None,
+                    *, stop_at: Optional[int] = None) -> torch.Tensor:
+    """Batched eps-counts: a [B, M, d], b [B, N, d], valid_b [B, N].
+
+    Returns [B, M] int32 counts of valid b-rows of batch slot g within
+    ``eps`` of each a-row of slot g.  ``stop_at`` enables the saturating
+    early-exit contract (module docstring); ``valid_a`` only feeds that
+    exit and lets the kernel skip masked rows."""
+    if FORCE_REF:
+        return ref.eps_count_batch(a, b, eps, valid_b)
+    if not a.is_cuda:
+        return eps_count_batch_plain(a.to(torch.float32),
+                                     b.to(torch.float32), eps, valid_b)
+    name = "eps_count_batch"
+    a, b, vb, va = _check(name, a, b, valid_b, valid_a, batched=True)
+    B, M, d = a.shape
+    N = b.shape[1]
+    return _launch_eps_count(name, a, b, vb, va, eps, stop_at, B, M, B * M,
+                             N, N * d, N, (B, M))
+
+
+def row_min_batch(a: torch.Tensor, b: torch.Tensor,
+                  valid_b: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched :func:`row_min`: a [B, M, d], b [B, N, d], valid_b [B, N].
+
+    Returns ([B, M] f32 min squared distance, [B, M] int32 first argmin
+    into slot g's b-rows); a row with no valid candidate reports
+    ``(inf, -1)``."""
+    if FORCE_REF:
+        return ref.row_min_batch(a, b, valid_b)
+    if not a.is_cuda:
+        return row_min_batch_plain(a.to(torch.float32), b.to(torch.float32),
+                                   valid_b)
+    name = "row_min_batch"
+    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=True)
+    B, M, d = a.shape
+    N = b.shape[1]
+    return _launch_row_min(name, a, b, vb, B, M, B * M, N, N * d, N, (B, M))
+
+
+def eps_count(a: torch.Tensor, b: torch.Tensor, eps,
+              valid_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Count of b-points within ``eps`` of each a-point: a [M, d],
+    b [N, d], valid_b [N] -> [M] int32."""
+    if FORCE_REF:
+        return ref.eps_count(a, b, eps, valid_b)
+    if not a.is_cuda:
+        vb = None if valid_b is None else valid_b[None]
+        return eps_count_batch_plain(a.to(torch.float32)[None],
+                                     b.to(torch.float32)[None], eps, vb)[0]
+    name = "eps_count"
+    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=False)
+    M, N = a.shape[0], b.shape[0]
+    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
+    return _launch_eps_count(name, a, b, vb, None, eps, None, slots,
+                             ROWS_PER_SLOT, M, N, 0, 0, (M,))
+
+
+def row_min(a: torch.Tensor, b: torch.Tensor,
+            valid_b: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (min squared distance, first argmin) into b: a [M, d],
+    b [N, d], valid_b [N] -> ([M] f32, [M] int32); ``(inf, -1)`` for a
+    row with no valid candidate."""
+    if FORCE_REF:
+        return ref.row_min(a, b, valid_b)
+    if not a.is_cuda:
+        vb = None if valid_b is None else valid_b[None]
+        mins, args = row_min_batch_plain(a.to(torch.float32)[None],
+                                         b.to(torch.float32)[None], vb)
+        return mins[0], args[0]
+    name = "row_min"
+    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=False)
+    M, N = a.shape[0], b.shape[0]
+    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
+    return _launch_row_min(name, a, b, vb, slots, ROWS_PER_SLOT, M, N, 0, 0,
+                           (M,))

@@ -1,0 +1,92 @@
+"""Plain PyTorch oracles for the pairwise-distance kernels.
+
+The semantic ground truth in the ``aa + bb - 2ab`` form, float32, the
+same form as the oracle of the JAX package (``repro.kernels.ref``), so
+the two packages' oracles can be compared directly.  These materialize
+the whole ``[.., M, N]`` distance tensor and are meant for tests and
+small inputs; the wrappers in ``ops.py`` never call them unless
+``FORCE_REF`` is set.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, d] x [N, d] -> [M, N] squared Euclidean distances."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    aa = (a * a).sum(dim=1)[:, None]
+    bb = (b * b).sum(dim=1)[None, :]
+    d2 = aa + bb - 2.0 * (a @ b.T)
+    return torch.clamp_min(d2, 0.0)
+
+
+def _eps2(eps, like: torch.Tensor) -> torch.Tensor:
+    e = torch.as_tensor(eps, dtype=torch.float32, device=like.device)
+    return e * e
+
+
+def eps_count(a: torch.Tensor, b: torch.Tensor, eps,
+              valid_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row count of points of ``b`` within ``eps`` of each row of ``a``."""
+    hit = sq_dists(a, b) <= _eps2(eps, a)
+    if valid_b is not None:
+        hit = hit & valid_b[None, :]
+    return hit.sum(dim=1).to(torch.int32)
+
+
+def _masked_min_argmin(d2: torch.Tensor, valid: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, first argmin) over the last axis after folding the validity
+    mask (broadcast against ``d2``) to +inf; (inf, -1) where nothing is
+    valid."""
+    if valid is not None:
+        d2 = torch.where(valid, d2, torch.inf)
+    mins = d2.min(dim=-1).values
+    idx = d2.argmin(dim=-1).to(torch.int32)
+    idx = torch.where(torch.isinf(mins), torch.full_like(idx, -1), idx)
+    return mins, idx
+
+
+def row_min(a: torch.Tensor, b: torch.Tensor,
+            valid_b: Optional[torch.Tensor] = None):
+    """Per-row (min squared distance, argmin index) into ``b``.
+
+    A fully-masked row (no valid b-point at all) reports ``(inf, -1)``,
+    never an in-range index into masked rows."""
+    return _masked_min_argmin(
+        sq_dists(a, b), None if valid_b is None else valid_b[None, :])
+
+
+def sq_dists_batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, M, d] x [B, N, d] -> [B, M, N] squared Euclidean distances."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    aa = (a * a).sum(dim=-1)[:, :, None]
+    bb = (b * b).sum(dim=-1)[:, None, :]
+    ab = torch.einsum("bmd,bnd->bmn", a, b)
+    return torch.clamp_min(aa + bb - 2.0 * ab, 0.0)
+
+
+def eps_count_batch(a: torch.Tensor, b: torch.Tensor, eps,
+                    valid_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-batch per-row eps-counts: a [B, M, d], b [B, N, d], valid_b
+    [B, N] -> [B, M] int32."""
+    hit = sq_dists_batch(a, b) <= _eps2(eps, a)
+    if valid_b is not None:
+        hit = hit & valid_b[:, None, :]
+    return hit.sum(dim=-1).to(torch.int32)
+
+
+def row_min_batch(a: torch.Tensor, b: torch.Tensor,
+                  valid_b: Optional[torch.Tensor] = None):
+    """Batched :func:`row_min`: a [B, M, d], b [B, N, d], valid_b [B, N]
+    -> ([B, M] f32 min d2, [B, M] int32 argmin; (inf, -1) for rows with
+    no valid b-point)."""
+    return _masked_min_argmin(
+        sq_dists_batch(a, b),
+        None if valid_b is None else valid_b[:, None, :])
