@@ -25,6 +25,23 @@ result line) as soon as a phase fails:
            flags; (b) core flags and the nearest-core rule recomputed in
            float64 for sampled points against all points; (c) the same
            generator at n = 20,000 conformant to the port's brute engine
+  serve    the fitted index on the same data: ``cluster(...,
+           return_index=True)`` (fit and attach timed apart), eight
+           batches of 2,048 mixed queries in each predict mode (device
+           equal to host bit for bit, kernel equal to host on every
+           decidable query, host held to the nearest-core rule in float64
+           on the card), four steps of 85 % predict / 10 % insert / 5 %
+           delete on a host-serving index and a device-resident twin
+           (equal after every step), and a snapshot round trip
+  guard_band  the two guard-band kernels against their plain versions on
+           the largest kernel-mode predict call, on the fit's captured
+           ``eps_count_batch`` inputs with the served index's band
+           thresholds (with and without the per-row MinPts bar), on
+           integer lattices (equal) and on random reals
+
+Each phase that drives a path of the port sets the kernels' launch
+counts to 0 just before it and reads them just after; the summary's
+``launches`` is the sum over the fit's cold run and the serve phase.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -60,7 +77,14 @@ REPLACES = {
     "row_min_batch": "src/repro/kernels/pairwise.py:317",
     "eps_count": "src/repro/kernels/pairwise.py:76",
     "row_min": "src/repro/kernels/pairwise.py:120",
+    "eps_count_band_batch": "src/repro/kernels/pairwise.py:208",
+    "row_min2_batch": "src/repro/kernels/pairwise.py:270",
 }
+# serving traffic: batches of the serve bench's size, and its mix per
+# mutation step (85 % predict, 10 % insert, 5 % delete)
+SERVE_BATCH = 2048
+SERVE_BATCHES = 8
+MUTATION_STEPS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -369,6 +393,433 @@ def check_sampled(pts64, labels, core, eps, seed, dev, n_sample=2000):
 
 
 # --------------------------------------------------------------------------
+# serve: the fitted index
+# --------------------------------------------------------------------------
+
+def nearest_cores(q64: np.ndarray, cpts: torch.Tensor, clab: torch.Tensor,
+                  chunk: int = 256):
+    """float64 on the card, against every core point: per query the
+    least squared distance and the least / greatest label among the
+    cores within a relative 1e-12 (exact ties) and 1e-5 (ties a float32
+    kernel may resolve either way) of it."""
+    big = torch.iinfo(torch.int64).max
+    out = {k: [] for k in ("dmin", "lo", "hi", "lo5", "hi5")}
+    for s in range(0, len(q64), chunk):
+        qq = torch.as_tensor(q64[s:s + chunk], device=cpts.device)
+        d2 = (qq[:, None, 0] - cpts[None, :, 0]) ** 2
+        for k in range(1, cpts.shape[1]):
+            d2 += (qq[:, None, k] - cpts[None, :, k]) ** 2
+        dmin = d2.min(dim=1).values
+        out["dmin"].append(dmin)
+        for tag, rel in (("", 1e-12), ("5", 1e-5)):
+            near = d2 <= dmin[:, None] * (1.0 + rel)
+            out["lo" + tag].append(
+                torch.where(near, clab[None, :], big).min(dim=1).values)
+            out["hi" + tag].append(
+                torch.where(near, clab[None, :], -1).max(dim=1).values)
+        del d2
+    return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
+
+
+def check_host_rule(q64, host, near, cpts_np, clab_np, eps2):
+    """The oracle rule for host-mode labels: noise exactly where no core
+    lies within eps, else the label of a core at the least distance.  A
+    query whose card distance is within the exact-tie window of eps^2 or
+    of another cluster's core is decided again on the host with the
+    host's own float64 expression."""
+    dmin = near["dmin"]
+    amb = (near["lo"] != near["hi"]) | (np.abs(dmin - eps2) <= 1e-12 * eps2)
+    clear = ~amb
+    bad = int(((host[clear] == -1) != (dmin[clear] > eps2)).sum())
+    inside = clear & (dmin <= eps2)
+    bad += int((host[inside] != near["lo"][inside]).sum())
+    for i in np.flatnonzero(amb):
+        d2 = ((cpts_np - q64[i]) ** 2).sum(axis=1)
+        dm = d2.min()
+        ok = (host[i] == -1) if dm > eps2 else \
+            (host[i] in set(clab_np[d2 == dm].tolist()))
+        bad += int(not ok)
+    return bad, int(amb.sum())
+
+
+def serve_phase(pts, eps, caps, fit_labels, seed, dev):
+    """Fit with the index, predict in three modes, the mutation stream
+    on two planes, a snapshot round trip.  Returns (summary, launches
+    of this path, the largest kernel-mode predict call, the index)."""
+    from repro_torch.data.scenarios import (_insert_drift, _queries_mixed,
+                                            get_scenario)
+    from repro_torch.engine import cluster, registry
+    from repro_torch.index import GritIndex
+    from repro_torch.kernels import ops
+
+    n = len(pts)
+    sc = dataclasses.replace(get_scenario("blobs-3d"), eps=eps, n=n)
+    rng = np.random.default_rng(seed + 30_000)
+    batches = [_queries_mixed(rng, pts, sc, SERVE_BATCH)
+               for _ in range(SERVE_BATCHES)]
+    n_pred = int(0.85 * SERVE_BATCH)
+    n_ins = int(0.10 * SERVE_BATCH)
+    n_del = SERVE_BATCH - n_pred - n_ins
+
+    captured = []                        # the largest kernel-mode call
+    real_min = ops.row_min_batch
+
+    def keep_min(a, b, valid_b=None):
+        if not captured or b.numel() > captured[0][1].numel():
+            captured[:] = [(a, b, valid_b)]
+        return real_min(a, b, valid_b)
+
+    attach_s = []
+    real_attach = registry._attach_index
+
+    def timed_attach(*a, **k):
+        t0 = time.perf_counter()
+        out = real_attach(*a, **k)
+        attach_s.append(time.perf_counter() - t0)
+        return out
+
+    ops.reset_launches()
+    registry._attach_index = timed_attach
+    try:
+        t0 = time.perf_counter()
+        res = cluster(pts, eps, MIN_PTS, engine="device-kernels", caps=caps,
+                      return_index=True)
+        fit_attach_s = time.perf_counter() - t0
+    finally:
+        registry._attach_index = real_attach
+    fit_launches = dict(ops.LAUNCHES)
+    idx = res.index
+    require(np.array_equal(res.labels, fit_labels)
+            and np.array_equal(idx.labels_arrival(), fit_labels),
+            "the fit with the index gave other labels")
+    require(np.array_equal(idx.core_arrival(), res.core),
+            "the index holds other core flags than the fit")
+
+    # ---- predict in three modes ----------------------------------------
+    out = {m: [] for m in ("host", "kernel", "device")}
+    secs = {m: [] for m in out}
+    stats = {m: [] for m in out}
+
+    def run(mode):
+        for q in batches:
+            st = {}
+            t0 = time.perf_counter()
+            lab, d2 = idx.predict(q, mode=mode, return_d2=True, stats=st)
+            torch.cuda.synchronize()
+            secs[mode].append(time.perf_counter() - t0)
+            out[mode].append((lab, d2))
+            stats[mode].append(st)
+
+    run("host")
+    ops.row_min_batch = keep_min
+    try:
+        run("kernel")
+    finally:
+        ops.row_min_batch = real_min
+    t0 = time.perf_counter()
+    idx.ensure_merge_graph()
+    merge_graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.ensure_device_state()
+    torch.cuda.synchronize()
+    attach_device_s = time.perf_counter() - t0
+    run("device")
+
+    q_all = np.concatenate(batches)
+    host = np.concatenate([o[0] for o in out["host"]])
+    host_d2 = np.concatenate([o[1] for o in out["host"]])
+    dev_lab = np.concatenate([o[0] for o in out["device"]])
+    dev_d2 = np.concatenate([o[1] for o in out["device"]])
+    require(np.array_equal(dev_lab, host) and np.array_equal(dev_d2, host_d2),
+            f"device-mode predict differs from host mode on "
+            f"{int((dev_lab != host).sum())} labels / "
+            f"{int((dev_d2 != host_d2).sum())} distances")
+    core = idx.core_arrival()
+    cpts_np = pts[core]
+    clab_np = idx.labels_arrival()[core]
+    near = nearest_cores(q_all, torch.as_tensor(cpts_np, device=dev),
+                         torch.as_tensor(clab_np, device=dev))
+    eps2 = eps * eps
+    bad_rule, ambiguous = check_host_rule(q_all, host, near, cpts_np,
+                                          clab_np, eps2)
+    require(bad_rule == 0, f"{bad_rule} host-mode labels break the "
+            f"nearest-core rule")
+    kern = np.concatenate([o[0] for o in out["kernel"]])
+    dmin = np.sqrt(near["dmin"])
+    decidable = (np.abs(dmin - eps) > 1e-5 * eps) & (near["lo5"] == near["hi5"])
+    mism = int((kern[decidable] != host[decidable]).sum())
+    require(mism == 0, f"kernel-mode predict differs from host mode on "
+            f"{mism} decidable queries")
+
+    def per_mode(mode):
+        med = float(np.median(secs[mode]))
+        return dict(median_s=med, queries_per_s=SERVE_BATCH / med,
+                    batch_s=secs[mode],
+                    candidates=[s.get("candidates") for s in stats[mode]])
+
+    predict = {m: per_mode(m) for m in out}
+    predict["kernel"]["caps"] = dataclasses.asdict(idx.predict_caps)
+    predict["kernel"]["groups"] = [s["groups"] for s in stats["kernel"]]
+    predict["device"]["uncertain"] = [s["uncertain"] for s in stats["device"]]
+    # host packing + upload + enqueue, then block + host reduce + band
+    # fallback (predict_device_async's own split of each batch)
+    predict["device"]["pack_s"] = [s["t_pack"] for s in stats["device"]]
+    predict["device"]["resolve_s"] = [s["t_kernel"] for s in stats["device"]]
+    # share of the packed [group_cap, cand_cap] candidate slots that are
+    # padding, per batch
+    predict["kernel"]["padded_share"] = [
+        1.0 - s["candidates"] / (s["caps"]["group_cap"] * s["caps"]["cand_cap"])
+        for s in stats["kernel"]]
+    predict_launches = dict(ops.LAUNCHES)
+
+    # ---- mutation stream: host-serving index vs device-resident twin ----
+    plane = {"host": GritIndex.restore(idx.snapshot()), "device": idx}
+    require(plane["host"].device_state is None, "the host plane has a "
+            "resident state")
+    step_s = {"host": [], "device": []}
+    # per step and plane: where the mutation time went (the stats' own
+    # wall times; t_pack + t_kernel is the device stages' share)
+    split = {"host": [], "device": []}
+    nonsemantic = {"dist_evals", "t_total", "t_pack", "t_kernel",
+                   "band_fallback"}
+    mirror = []
+    for step in range(MUTATION_STEPS):
+        ins = _insert_drift(rng, pts, sc, n_ins, step, MUTATION_STEPS)
+        kill = rng.choice(plane["host"].arrival_live(), n_del, replace=False)
+        q = _queries_mixed(rng, pts, sc, n_pred)
+        got = {}
+        for name, ix in plane.items():
+            t0 = time.perf_counter()
+            si = ix.insert(ins)
+            sd = ix.delete(kill)
+            lab, d2 = ix.predict(q, mode=name, return_d2=True)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - t0)
+            got[name] = (si, sd, lab, d2)
+            split[name].append(dict(
+                insert_s=si["t_total"], delete_s=sd["t_total"],
+                device_stages_s=sum(x[k] for x in (si, sd)
+                                    for k in ("t_pack", "t_kernel")),
+                affected_grids=si["affected_grids"] + sd["affected_grids"],
+                band_fallback=si["band_fallback"] + sd["band_fallback"]))
+        h, d = plane["host"], plane["device"]
+        for k in (0, 1):
+            for key in set(got["host"][k]) - nonsemantic:
+                require(np.array_equal(got["host"][k][key],
+                                       got["device"][k][key]),
+                        f"step {step}: stats {key} differ between planes")
+        require(np.array_equal(h.labels_arrival(), d.labels_arrival())
+                and np.array_equal(h.core_arrival(), d.core_arrival())
+                and np.array_equal(h.merge_edges, d.merge_edges),
+                f"step {step}: the planes' states differ")
+        require(np.array_equal(got["host"][2], got["device"][2])
+                and np.array_equal(got["host"][3], got["device"][3]),
+                f"step {step}: the planes' answers differ")
+        mm = d.device_state.mirror_matches(d)
+        require(all(mm.values()), f"step {step}: resident mirror {mm}")
+        mirror.append(mm)
+    launches = {k: v for k, v in ops.LAUNCHES.items()}
+
+    # ---- snapshot round trip -------------------------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.npz")
+        t0 = time.perf_counter()
+        plane["host"].save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = GritIndex.load(path)
+        load_s = time.perf_counter() - t0
+    require(not os.path.exists(path), "the snapshot file was not removed")
+    sa, sb = plane["host"].snapshot(), back.snapshot()
+    require(set(sa) == set(sb) and all(np.array_equal(sa[k], sb[k])
+                                       for k in sa),
+            "the snapshot does not round-trip")
+    lb, db = back.predict(batches[0], mode="host", return_d2=True)
+    la, da = plane["host"].predict(batches[0], mode="host", return_d2=True)
+    require(np.array_equal(la, lb) and np.array_equal(da, db),
+            "the loaded snapshot answers otherwise")
+
+    summary = dict(
+        n=n, fit_attach_s=fit_attach_s, attach_s=attach_s[0],
+        fit_s=fit_attach_s - attach_s[0], grids=int(idx.num_grids),
+        queries=int(len(q_all)), predict=predict,
+        row_min_batch_launches_predict=(predict_launches["row_min_batch"]
+                                        - fit_launches["row_min_batch"]),
+        device_state_attach_s=attach_device_s,
+        oracle=dict(rule_violations=bad_rule, decided_on_host=ambiguous,
+                    kernel_decidable=int(decidable.sum()),
+                    kernel_mismatches=mism,
+                    noise=int((host == -1).sum())),
+        mutation=dict(steps=MUTATION_STEPS, predict=n_pred, insert=n_ins,
+                      delete=n_del, merge_graph_s=merge_graph_s,
+                      merge_edges=int(len(idx.merge_edges)),
+                      step_s=step_s, step_split=split, planes_equal=True,
+                      mirror_matches=all(all(m.values()) for m in mirror)),
+        snapshot=dict(bytes=nbytes, save_s=save_s, load_s=load_s,
+                      roundtrip=True))
+    return summary, launches, captured[0], idx
+
+
+# --------------------------------------------------------------------------
+# guard-band kernels vs their plain versions
+# --------------------------------------------------------------------------
+
+def compare_band(ops_mod, a, b, lo, hi, vb, stop):
+    """Launch ``eps_count_band_batch``, hold it against the plain
+    version's full counts: equal where the row's lo count is below its
+    bar (every row without a bar), never above elsewhere."""
+    from repro_torch.kernels.ops import eps_count_band_batch_plain
+    glo, ghi = ops_mod.eps_count_band_batch(a, b, lo, hi, vb, stop)
+    torch.cuda.synchronize()
+    wlo, whi = eps_count_band_batch_plain(a, b, lo, hi, vb)
+    done = torch.ones_like(glo, dtype=torch.bool) if stop is None \
+        else glo < stop
+    diff = max(int(((glo - wlo).abs() * done).max().item()),
+               int(((ghi - whi).abs() * done).max().item())) \
+        if glo.numel() else 0
+    over = bool((glo > wlo).any() or (ghi > whi).any())
+    return diff, over
+
+
+def compare_min2(ops_mod, a, b, vb):
+    """(max abs error of min and runner-up on finite rows, rtol-1e-6
+    ok, argmin mismatches, inf pattern ok)."""
+    from repro_torch.kernels.ops import row_min2_batch_plain
+    gm, gm2, gi = ops_mod.row_min2_batch(a, b, vb)
+    torch.cuda.synchronize()
+    wm, wm2, wi = row_min2_batch_plain(a, b, vb)
+    err, rel_ok, inf_ok = 0.0, True, True
+    for g, w in ((gm, wm), (gm2, wm2)):
+        inf_ok &= bool((torch.isinf(g) == torch.isinf(w)).all())
+        fin = ~torch.isinf(w)
+        if w.numel():
+            err = max(err, float(((g - w).abs() * fin).nan_to_num(0.0)
+                                 .max().item()))
+        rel_ok &= bool((((g - w).abs() <= 1e-6 * w.abs()) | ~fin).all())
+    return err, rel_ok, int((gi != wi).sum().item()), inf_ok
+
+
+def _band_work(vb, B, P, C, d, n_out, extra_in=0.0):
+    pairs = float(P) * float(vb.sum().item())
+    nbytes = (4.0 * d * B * P + 4.0 * d * float(vb.sum().item()) + B * C
+              + 4.0 * n_out * B * P + extra_in)
+    return _bound(nbytes, 3.0 * d * pairs)
+
+
+def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import (eps_count_band_batch_plain,
+                                         row_min2_batch_plain)
+    cases = 0
+    # 1. integer lattices (duplicated candidates, one valid candidate in
+    # a slot, an all-masked slot): everything equal
+    shapes = [(1, 1, 1, 1), (3, 5, 7, 2), (2, 17, 130, 3), (4, 127, 129, 4),
+              (2, 64, 1300, 5), (3, 63, 600, 3), (2, 9, 260, 7),
+              (5, 63, 2048, 3)]
+    for i, (B, P, C, d) in enumerate(shapes):
+        for dup in (False, True):
+            a, b, vb, _ = lattice_inputs(B, P, C, d, 300 + i, dev, dup)
+            if B > 2:
+                vb[1] = False
+                vb[1, C // 3] = True
+            rng = np.random.default_rng(400 + i)
+            for bar in (None, 0, 2, 5, 1000):
+                stop = None if bar is None else torch.as_tensor(
+                    rng.integers(0, bar + 1, (B, P)).astype(np.int32)).to(dev)
+                diff, over = compare_band(ops, a, b, 15.0, 17.0, vb, stop)
+                require(diff == 0 and not over, f"eps_count_band_batch "
+                        f"differs on lattice {(B, P, C, d)} dup={dup} "
+                        f"bar={bar}: {diff}")
+            err, _, mism, inf_ok = compare_min2(ops, a, b, vb)
+            require(err == 0.0 and mism == 0 and inf_ok, f"row_min2_batch "
+                    f"differs on lattice {(B, P, C, d)} dup={dup}: "
+                    f"err={err} argmin={mism}")
+            cases += 6
+    # 2. random reals: d2 within rtol 1e-6, counts equal outside the
+    # rows with a candidate inside that band of either threshold
+    band_rows = 0
+    for i, (B, P, C, d) in enumerate(shapes):
+        rng = np.random.default_rng(500 + i)
+        a = torch.as_tensor(rng.normal(size=(B, P, d)) * 10,
+                            dtype=torch.float32).to(dev)
+        b = torch.as_tensor(rng.normal(size=(B, C, d)) * 10,
+                            dtype=torch.float32).to(dev)
+        vb = torch.as_tensor(rng.uniform(size=(B, C)) > 0.3).to(dev)
+        glo, ghi = ops.eps_count_band_batch(a, b, 5.5, 6.5, vb)
+        wlo, whi = eps_count_band_batch_plain(a, b, 5.5, 6.5, vb)
+        d2 = ops.sq_dists_direct(a, b)
+        in_band = torch.zeros_like(glo, dtype=torch.bool)
+        for t2 in (5.5 ** 2, 6.5 ** 2):
+            in_band |= (((d2 - t2).abs() <= t2 * 1e-6) & vb[:, None, :]
+                        ).any(dim=2)
+        band_rows += int(in_band.sum().item())
+        require(bool((((glo == wlo) & (ghi == whi)) | in_band).all()),
+                f"eps_count_band_batch differs outside the band "
+                f"{(B, P, C, d)}")
+        err, rel_ok, _, inf_ok = compare_min2(ops, a, b, vb)
+        require(rel_ok and inf_ok, f"row_min2_batch beyond rtol 1e-6 "
+                f"{(B, P, C, d)}")
+        cases += 2
+
+    # 3. the largest kernel-mode predict call: both kernels, timed (the
+    # summary rows), the band at the served index's thresholds
+    a, b, vb = predict_call
+    B, P, d = a.shape
+    C = b.shape[1]
+    err, rel_ok, mism, inf_ok = compare_min2(ops, a, b, vb)
+    require(err == 0.0 and mism == 0 and inf_ok, f"row_min2_batch differs "
+            f"from its plain version on the predict call: err={err} "
+            f"argmin={mism}")
+    bound, by = _band_work(vb, B, P, C, d, 3)
+    rows = [dict(name="row_min2_batch", shape=[B, P, C, d],
+                 max_abs_err=float(err),
+                 ms=cuda_ms(lambda: ops.row_min2_batch(a, b, vb)),
+                 plain_ms=cuda_ms(lambda: row_min2_batch_plain(a, b, vb),
+                                  reps=2, warmup=1),
+                 bound_ms=bound, bound_by=by)]
+    diff, over = compare_band(ops, a, b, eps_lo, eps_hi, vb, None)
+    require(diff == 0 and not over, f"eps_count_band_batch differs from its "
+            f"plain version on the predict call: {diff}")
+    bound, by = _band_work(vb, B, P, C, d, 2)
+    rows.append(dict(
+        name="eps_count_band_batch", shape=[B, P, C, d],
+        max_abs_err=float(diff),
+        ms=cuda_ms(lambda: ops.eps_count_band_batch(a, b, eps_lo, eps_hi, vb)),
+        plain_ms=cuda_ms(lambda: eps_count_band_batch_plain(
+            a, b, eps_lo, eps_hi, vb), reps=2, warmup=1),
+        bound_ms=bound, bound_by=by))
+    cases += 2
+
+    # 4. the fit's captured eps_count_batch inputs at every width, band
+    # thresholds of the served index, with the MinPts bar on live rows
+    # (0 on padded rows) and without a bar
+    tiers = []
+    for C in sorted(captured_fit):
+        (a, b, vb, va, _, _), _ = captured_fit[C]
+        B, P, d = a.shape
+        stop = torch.where(va, MIN_PTS, 0).to(torch.int32).contiguous()
+        for bar in (stop, None):
+            diff, over = compare_band(ops, a, b, eps_lo, eps_hi, vb, bar)
+            require(diff == 0 and not over, f"eps_count_band_batch differs "
+                    f"on the fit's inputs at width {C} (bar: "
+                    f"{bar is not None}): {diff}")
+            bound, by = _band_work(vb, B, P, C, d, 2,
+                                   0.0 if bar is None else 4.0 * B * P)
+            tiers.append(dict(
+                shape=[B, P, C, d], stop_row=bar is not None,
+                max_abs_err=float(diff),
+                ms=cuda_ms(lambda: ops.eps_count_band_batch(
+                    a, b, eps_lo, eps_hi, vb, bar)),
+                plain_ms=cuda_ms(lambda: eps_count_band_batch_plain(
+                    a, b, eps_lo, eps_hi, vb), reps=2, warmup=1),
+                bound_ms=bound, bound_by=by))
+            cases += 1
+    return rows, tiers, cases, band_rows
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -481,14 +932,6 @@ def main() -> int:
 
     # ---- kernels --------------------------------------------------------
     rows, tiers, cases, band_rows = kernels_phase(captured, dev)
-    captured.clear()
-    kernels = [dict(name=r["name"], route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[r["name"]],
-                    launches=launches[r["name"]],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None)
-               for r in rows]
     emit("kernels", comparisons=cases, rows_in_eps_band=band_rows,
          tolerance="integer outputs equal; d2 rtol 1e-6 (equal on lattices)",
          shapes={r["name"]: r["shape"] for r in rows}, main_path_widths=tiers)
@@ -516,9 +959,43 @@ def main() -> int:
             "core flags differ from brute at n = 20,000")
     emit("check", plain_plane_equal=True, plain_plane_s=plain_s, **sampled,
          brute_n=20_000, brute_eps=small_eps, brute_clusters=ref.n_clusters,
-         brute_s=time.perf_counter() - t0,
-         script_s=time.perf_counter() - t_script)
+         brute_s=time.perf_counter() - t0)
 
+    # ---- serve ----------------------------------------------------------
+    before_serve = dict(ops.LAUNCHES)    # serve_phase resets the counts
+    serve, serve_launches, predict_call, index = serve_phase(
+        pts, eps, caps, res.labels, args.seed, dev)
+    require(serve_launches["row_min_batch"] > 0,
+            "kernel-mode predict never launched row_min_batch")
+    emit("serve", **serve, launches=serve_launches)
+
+    # ---- guard-band kernels ---------------------------------------------
+    _, lo2, hi2 = index.device_state.thresholds(index)
+    eps_lo, eps_hi = math.sqrt(lo2), math.sqrt(hi2)
+    band_rows_, band_tiers, band_cases, band_in = guard_band_phase(
+        captured["eps_count_batch"], predict_call, eps_lo, eps_hi, dev)
+    captured.clear()
+    emit("guard_band", comparisons=band_cases, rows_in_band=band_in,
+         eps_lo=eps_lo, eps_hi=eps_hi,
+         tolerance="integer outputs and argmins equal; min and runner-up "
+                   "equal on lattices and on the predict call, rtol 1e-6 "
+                   "on random reals",
+         shapes={r["name"]: r["shape"] for r in band_rows_},
+         fit_widths=band_tiers, script_s=time.perf_counter() - t_script)
+
+    # launches on the two driven paths (the cold fit, the serve phase);
+    # launches_script also counts the comparison launches
+    kernels = [dict(name=r["name"], route="cuda", source=KERNEL_SOURCE,
+                    replaces=REPLACES[r["name"]],
+                    launches=launches[r["name"]] + serve_launches[r["name"]],
+                    launches_by_path={"fit": launches[r["name"]],
+                                      "serve": serve_launches[r["name"]]},
+                    launches_script=(before_serve[r["name"]]
+                                     + ops.LAUNCHES[r["name"]]),
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=None)
+               for r in rows + band_rows_]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,38 @@ def _mult8(x: int) -> int:
     return max(8, (int(x) + 7) // 8 * 8)
 
 
+@dataclasses.dataclass
+class ResidentCaps:
+    """Static shapes of a :class:`~repro_torch.index.GritIndex`'s
+    device-resident serving state (``index.device_state``).
+
+    Same cap discipline as :class:`GritCaps` / ``PredictCaps``:
+    power-of-two quantization, so mutation-driven growth re-allocates
+    the resident tensors at O(log n) distinct sizes, monotone growth
+    (``grown_to``), and never silent truncation -- the host packs the
+    resident buffers, so an overflow triggers a rebuild *before* any
+    kernel runs.
+    """
+
+    row_cap: int = 0       # physical point rows (tombstones included)
+    grid_cap: int = 0      # non-empty grids
+    edge_cap: int = 0      # persistent merge-graph edges
+
+    @classmethod
+    def for_state(cls, rows: int, grids: int, edges: int
+                  ) -> "ResidentCaps":
+        return cls(row_cap=_pow2_at_least(rows, lo=256),
+                   grid_cap=_pow2_at_least(grids, lo=64),
+                   edge_cap=_pow2_at_least(edges, lo=64))
+
+    def grown_to(self, other: "ResidentCaps"
+                 ) -> Tuple["ResidentCaps", bool]:
+        new = ResidentCaps(row_cap=max(self.row_cap, other.row_cap),
+                           grid_cap=max(self.grid_cap, other.grid_cap),
+                           edge_cap=max(self.edge_cap, other.edge_cap))
+        return new, new != self
+
+
 def stencil_neighbor_bound(d: int) -> int:
     """Exact max number of neighboring non-empty grids: the size of the
     offset-< d stencil, minus the grid itself."""

@@ -100,6 +100,41 @@ def resolve_auto(device=None) -> str:
         else "grit"
 
 
+def _attach_index(result: ClusterResult, pts: np.ndarray, eps: float,
+                  min_pts: int) -> ClusterResult:
+    """Build the fitted :class:`~repro_torch.index.GritIndex` from an
+    engine result (the ``return_index=True`` path).
+
+    Host engines already carry the float64 ``GridIndex`` and core flags,
+    so this is pure reshuffling; device results trigger a host partition
+    rebuild (and, for an engine that reports no core flags, a grid-based
+    core identification) inside ``from_fit``.  The caps of the final
+    adaptive attempt ride along with the index.
+    """
+    from ..index import GritIndex
+    from ..core.device_dbscan import GritCaps
+
+    caps = None
+    if result.attempts:
+        names = {f.name for f in dataclasses.fields(GritCaps)}
+        kw = {k: v for k, v in result.attempts[-1]["caps"].items()
+              if k in names}
+        try:
+            caps = GritCaps(**kw) if kw else None
+        except TypeError:
+            caps = None
+    index = GritIndex.from_fit(pts, eps, min_pts, labels=result.labels,
+                               core=result.core, grid=result.grid,
+                               caps=caps)
+    result.index = index
+    if result.grid is None:
+        result.grid = index.fit_grid
+    if result.core is None:
+        result.core = index.core_arrival()
+        result.core_idx = np.flatnonzero(result.core)
+    return result
+
+
 def cluster(points, eps: float, min_pts: int, *,
             engine: str = "auto", device=None, return_index: bool = False,
             **opts) -> ClusterResult:
@@ -112,8 +147,11 @@ def cluster(points, eps: float, min_pts: int, *,
       device: where the device engines run.  ``None`` is the CUDA
         device (``RuntimeError`` when there is none); ``"cpu"`` runs the
         same pipeline on the CPU with the kernels' plain versions.
-      return_index: the fitted serving index is not part of the port
-        yet; asking for it raises ``NotImplementedError``.
+      return_index: also build a fitted
+        :class:`~repro_torch.index.GritIndex` (grid partition + core
+        flags + labels, ready for ``predict`` / ``insert`` /
+        ``snapshot``) and attach it as ``result.index`` -- the
+        fit-once / serve-many path, available for every engine.
       **opts: engine-specific options (e.g. ``caps=`` -- see each
         engine's docstring).
 
@@ -136,13 +174,12 @@ def cluster(points, eps: float, min_pts: int, *,
         raise ValueError(
             f"points contain non-finite coordinates ({bad} row(s) with "
             f"NaN/Inf); clean the input before clustering")
-    if return_index:
-        raise NotImplementedError(
-            "return_index=True needs the fitted GritIndex (from_fit / "
-            "predict), which the next slice of the port adds")
     name = resolve_auto(device) if engine == "auto" else engine
     spec = get_engine(name)
     result = spec.fn(pts, float(eps), int(min_pts), device=device, **opts)
     assert result.labels.shape == (pts.shape[0],), \
         f"engine {name}: labels shape {result.labels.shape}"
+    if return_index:
+        result = _attach_index(result, np.asarray(pts, np.float64),
+                               float(eps), int(min_pts))
     return result

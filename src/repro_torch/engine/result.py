@@ -17,7 +17,8 @@ Beyond labels, a result carries what downstream tooling (the fitted
   built (exact float64 identifiers).  Host engines attach it for free;
   device engines run on float32 identifiers whose cell assignment can
   disagree with the float64 host partition at cell edges, so they leave
-  it ``None``.
+  it ``None`` and the ``return_index=True`` path of ``cluster()``
+  rebuilds it host-side (one O(n log n) pass) when an index is wanted.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ class ClusterResult:
                 leave this empty.
       stats:    engine-specific counters/timings (paper's kappa, distance
                 evals, per-stage seconds, ...).
-      index:    reserved for the fitted serving index; the port does not
-                build one yet, so this is always None.
+      index:    fitted :class:`~repro_torch.index.GritIndex` when the
+                caller asked ``cluster(..., return_index=True)``; None
+                otherwise.
     """
 
     labels: np.ndarray

@@ -1,11 +1,20 @@
 """Public wrappers of the pairwise-distance kernels.
 
-Four functions, same signatures and contracts as ``repro.kernels.ops``:
+Six kernel functions, same signatures and contracts as
+``repro.kernels.ops``:
 
 * ``eps_count(a, b, eps, valid_b)``  -> [M] int32
 * ``row_min(a, b, valid_b)``         -> ([M] f32, [M] int32)
 * ``eps_count_batch(a, b, eps, valid_b, valid_a, stop_at)`` -> [B, M] int32
 * ``row_min_batch(a, b, valid_b)``   -> ([B, M] f32, [B, M] int32)
+* ``eps_count_band_batch(a, b, eps_lo, eps_hi, valid_b, stop_row)``
+  -> ([B, M] int32 hits at ``eps_lo``, [B, M] int32 hits at ``eps_hi``)
+* ``row_min2_batch(a, b, valid_b)``  -> ([B, M] f32 min, [B, M] f32
+  runner-up, [B, M] int32 first argmin)
+
+and the two flat ragged gathers of the resident serving plane,
+``pairwise_d2_flat`` / ``pairwise_d2_flat_res``, which are plain
+gather-and-reduce in the reference too (no kernel of their own).
 
 Dispatch is by where the tensors live.  CUDA tensors launch the
 hand-written kernels of ``csrc/pairwise.cu`` (built at first use, see
@@ -29,9 +38,18 @@ full counts; the kernel stops scanning a slot once every live row of it
 has k hits.  Rows that ``valid_a`` masks receive counts the caller must
 ignore.
 
+``stop_row`` contract (``eps_count_band_batch``): a per-row bar on the
+lo count (0 exempts a row).  A row whose returned lo count is below its
+bar has scanned every valid candidate, so both of its counts are
+complete; the kernel stops a slot once every row reached its bar.  The
+plain version returns full counts.
+
 No-candidate contract: a row none of whose candidates is valid reports
-``(inf, -1)`` from ``row_min`` / ``row_min_batch``; ties resolve to the
-lowest candidate index.
+``(inf, -1)`` from ``row_min`` / ``row_min_batch`` and ``(inf, inf, -1)``
+from ``row_min2_batch``; ties resolve to the lowest candidate index.  The
+runner-up is over the remaining candidate slots, so a duplicate of the
+minimum makes ``min2 == min``; a row with one valid candidate reports
+``(d2, inf, idx)``.
 
 ``LAUNCHES`` counts kernel launches per wrapper (nothing else
 increments it), so a run can show which kernels its path went through.
@@ -50,7 +68,8 @@ from . import build, ref
 FORCE_REF = False
 
 LAUNCHES: Dict[str, int] = {"eps_count": 0, "row_min": 0,
-                            "eps_count_batch": 0, "row_min_batch": 0}
+                            "eps_count_batch": 0, "row_min_batch": 0,
+                            "eps_count_band_batch": 0, "row_min2_batch": 0}
 
 # the plain versions never hold a [B, P, chunk] tensor above this many
 # elements (128 MiB of float32)
@@ -135,6 +154,80 @@ def row_min_batch_plain(a: torch.Tensor, b: torch.Tensor,
     return best, arg.to(torch.int32)
 
 
+def eps_count_band_batch_plain(a: torch.Tensor, b: torch.Tensor, eps_lo,
+                               eps_hi, valid_b: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`eps_count_band_batch`: both thresholds'
+    counts from one chunked sweep; returns full counts."""
+    B, P, _ = a.shape
+    C = b.shape[1]
+    lo2, hi2 = _eps2(eps_lo), _eps2(eps_hi)
+    lo = torch.zeros((B, P), dtype=torch.int32, device=a.device)
+    hi = torch.zeros((B, P), dtype=torch.int32, device=a.device)
+    step = _chunk(B * P, C)
+    for s in range(0, C, step):
+        d2 = sq_dists_direct(a, b[:, s:s + step])
+        if valid_b is not None:
+            d2 = torch.where(valid_b[:, None, s:s + step], d2, torch.inf)
+        lo += (d2 <= lo2).sum(dim=2, dtype=torch.int32)
+        hi += (d2 <= hi2).sum(dim=2, dtype=torch.int32)
+    return lo, hi
+
+
+def row_min2_batch_plain(a: torch.Tensor, b: torch.Tensor,
+                         valid_b: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`row_min2_batch`: the chunked
+    ``row_min_batch_plain`` loop with the runner-up merge (the smaller
+    of both chunks' runners-up and the loser of the two minima)."""
+    B, P, _ = a.shape
+    C = b.shape[1]
+    best = torch.full((B, P), torch.inf, dtype=torch.float32, device=a.device)
+    best2 = torch.full_like(best, torch.inf)
+    arg = torch.full((B, P), -1, dtype=torch.int64, device=a.device)
+    step = _chunk(B * P, C)
+    for s in range(0, C, step):
+        d2 = sq_dists_direct(a, b[:, s:s + step])
+        if valid_b is not None:
+            d2 = torch.where(valid_b[:, None, s:s + step], d2, torch.inf)
+        cmin, carg = d2.min(dim=2)
+        cols = torch.arange(d2.shape[2], device=a.device)
+        d2_wo = torch.where(cols[None, None, :] == carg[:, :, None],
+                            torch.inf, d2)
+        cmin2 = d2_wo.min(dim=2).values
+        better = cmin < best
+        loser = torch.maximum(best, cmin)
+        best2 = torch.minimum(torch.minimum(best2, cmin2), loser)
+        best = torch.where(better, cmin, best)
+        arg = torch.where(better, carg + s, arg)
+    arg = torch.where(torch.isinf(best), torch.full_like(arg, -1), arg)
+    return best, best2, arg.to(torch.int32)
+
+
+def pairwise_d2_flat(points_res: torch.Tensor, qa: torch.Tensor,
+                     rr: torch.Tensor, qo: torch.Tensor,
+                     av: torch.Tensor) -> torch.Tensor:
+    """Flat ragged candidate distances: [T] float32 squared distances.
+
+    ``points_res`` is the [row_cap, d] float32 resident buffer; ``rr`` /
+    ``qo`` [T] int64 give each flat element's resident row and query
+    slot; ``qa`` [m, d] float32 holds anchor-centred queries and ``av``
+    [T, d] each element's cell anchor, so the subtraction runs on
+    stencil-scale coordinates.  The caller reduces the distances per
+    segment.  Plain gather-and-reduce, as in the reference (no kernel)."""
+    diff = (points_res[rr] - av) - qa[qo]
+    return (diff * diff).sum(dim=1)
+
+
+def pairwise_d2_flat_res(points_res: torch.Tensor, ra: torch.Tensor,
+                         rb: torch.Tensor, av: torch.Tensor) -> torch.Tensor:
+    """:func:`pairwise_d2_flat` with both operands resident: ``ra`` /
+    ``rb`` [T] int64 pick the two rows of each flat element, both
+    re-centred by the same element anchor ``av`` [T, d]."""
+    diff = (points_res[ra] - av) - (points_res[rb] - av)
+    return (diff * diff).sum(dim=1)
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -158,6 +251,12 @@ def _lib() -> ctypes.CDLL:
         lib.grit_row_min_batch.argtypes = [
             _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _VP]
         lib.grit_row_min_batch.restype = _I
+        lib.grit_eps_count_band_batch.argtypes = [
+            _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP]
+        lib.grit_eps_count_band_batch.restype = _I
+        lib.grit_row_min2_batch.argtypes = [
+            _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+        lib.grit_row_min2_batch.restype = _I
         _LIB = lib
     return _LIB
 
@@ -286,6 +385,82 @@ def row_min_batch(a: torch.Tensor, b: torch.Tensor,
     B, M, d = a.shape
     N = b.shape[1]
     return _launch_row_min(name, a, b, vb, B, M, B * M, N, N * d, N, (B, M))
+
+
+def eps_count_band_batch(a: torch.Tensor, b: torch.Tensor, eps_lo, eps_hi,
+                         valid_b: Optional[torch.Tensor] = None,
+                         stop_row: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-threshold batched eps-counts (a [B, M, d], b [B, N, d]).
+
+    Returns ``(count_lo, count_hi)`` [B, M] int32: hits at
+    ``d2 <= eps_lo**2`` and at ``d2 <= eps_hi**2`` (each threshold
+    squared in float32) from one sweep over the candidates.
+    ``stop_row`` ([B, M] int32) is the per-row saturating bar on the lo
+    count (module docstring)."""
+    if FORCE_REF:
+        return ref.eps_count_band_batch(a, b, eps_lo, eps_hi, valid_b)
+    if not a.is_cuda:
+        return eps_count_band_batch_plain(a.to(torch.float32),
+                                          b.to(torch.float32), eps_lo,
+                                          eps_hi, valid_b)
+    name = "eps_count_band_batch"
+    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=True)
+    B, M, d = a.shape
+    N = b.shape[1]
+    if stop_row is not None:
+        if stop_row.dtype != torch.int32 or tuple(stop_row.shape) != (B, M) \
+                or stop_row.device != a.device \
+                or not stop_row.is_contiguous():
+            raise ValueError(f"{name}: stop_row must be a contiguous int32 "
+                             f"{(B, M)} tensor on {a.device}, got "
+                             f"{stop_row.dtype} {tuple(stop_row.shape)} on "
+                             f"{stop_row.device}")
+    lo = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    hi = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    if B * M == 0:
+        return lo, hi
+    with torch.cuda.device(a.device):
+        err = _lib().grit_eps_count_band_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(),
+            None if stop_row is None else stop_row.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), B, M, N, d, _eps2(eps_lo),
+            _eps2(eps_hi), _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return lo, hi
+
+
+def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
+                   valid_b: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched (min, runner-up, first argmin) squared distances: a
+    [B, M, d], b [B, N, d], valid_b [B, N] -> ([B, M] f32, [B, M] f32,
+    [B, M] int32).  ``min2 - min`` lower-bounds the argmin's margin, the
+    guard band's argmin-certainty test (module docstring for the
+    no-candidate and tie rules)."""
+    if FORCE_REF:
+        return ref.row_min2_batch(a, b, valid_b)
+    if not a.is_cuda:
+        return row_min2_batch_plain(a.to(torch.float32), b.to(torch.float32),
+                                    valid_b)
+    name = "row_min2_batch"
+    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=True)
+    B, M, d = a.shape
+    N = b.shape[1]
+    mins = torch.empty((B, M), dtype=torch.float32, device=a.device)
+    mins2 = torch.empty((B, M), dtype=torch.float32, device=a.device)
+    args = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    if B * M == 0:
+        return mins, mins2, args
+    with torch.cuda.device(a.device):
+        err = _lib().grit_row_min2_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(), mins.data_ptr(),
+            mins2.data_ptr(), args.data_ptr(), B, M, N, d,
+            _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return mins, mins2, args
 
 
 def eps_count(a: torch.Tensor, b: torch.Tensor, eps,

@@ -90,3 +90,36 @@ def row_min_batch(a: torch.Tensor, b: torch.Tensor,
     return _masked_min_argmin(
         sq_dists_batch(a, b),
         None if valid_b is None else valid_b[:, None, :])
+
+
+def eps_count_band_batch(a: torch.Tensor, b: torch.Tensor, eps_lo, eps_hi,
+                         valid_b: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-threshold batched eps-counts: hits at ``d2 <= eps_lo**2`` and
+    at ``d2 <= eps_hi**2`` (a [B, M, d], b [B, N, d] -> two [B, M]
+    int32), the bracket the guard band proves core decisions with."""
+    d2 = sq_dists_batch(a, b)
+    hit_lo = d2 <= _eps2(eps_lo, a)
+    hit_hi = d2 <= _eps2(eps_hi, a)
+    if valid_b is not None:
+        hit_lo = hit_lo & valid_b[:, None, :]
+        hit_hi = hit_hi & valid_b[:, None, :]
+    return (hit_lo.sum(dim=-1).to(torch.int32),
+            hit_hi.sum(dim=-1).to(torch.int32))
+
+
+def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
+                   valid_b: Optional[torch.Tensor] = None):
+    """Batched (min, runner-up, argmin) squared distances: a [B, M, d],
+    b [B, N, d], valid_b [B, N] -> ([B, M] f32 min, [B, M] f32
+    second-smallest over the remaining slots, [B, M] int32 argmin).  No
+    valid candidate -> (inf, inf, -1); exactly one -> (d2, inf, idx)."""
+    d2 = sq_dists_batch(a, b)
+    if valid_b is not None:
+        d2 = torch.where(valid_b[:, None, :], d2, torch.inf)
+    mins, idx = _masked_min_argmin(d2, None)
+    cols = torch.arange(d2.shape[-1], device=d2.device)
+    first = d2.argmin(dim=-1)
+    d2_wo = torch.where(cols[None, None, :] == first[:, :, None],
+                        torch.inf, d2)
+    return mins, d2_wo.min(dim=-1).values, idx

@@ -285,6 +285,183 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert tops.LAUNCHES == before
 
 
+# --------------------------------------------------------------------------
+# guard-band kernels: two-threshold counts and (min, runner-up, argmin)
+# --------------------------------------------------------------------------
+
+BAND_DISPATCH = {
+    "default": lambda f, *x, **k: f(*x, **k),
+    "interpret": lambda f, *x, **k: f(*x, interpret=True, **k)}
+
+
+@pytest.mark.parametrize("bsz,m,n,d", BATCH_SHAPES)
+@pytest.mark.parametrize("dispatch", ["default", "interpret", "ref"])
+def test_eps_count_band_batch_matches_reference(bsz, m, n, d, dispatch):
+    a, b, vb = _batch(("band", bsz, m, n, d), bsz, m, n, d)
+    got_lo, got_hi = tops.eps_count_band_batch(_t(a), _t(b), 5.7, 6.3, _t(vb))
+    aj, bj, vj = jnp.asarray(a), jnp.asarray(b), jnp.asarray(vb)
+    if dispatch == "ref":
+        want = jref.eps_count_band_batch(aj, bj, 5.7, 6.3, vj)
+    else:
+        want = BAND_DISPATCH[dispatch](jops.eps_count_band_batch, aj, bj,
+                                       5.7, 6.3, vj)
+    assert got_lo.dtype == torch.int32 and tuple(got_lo.shape) == (bsz, m)
+    np.testing.assert_array_equal(got_lo.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got_hi.numpy(), np.asarray(want[1]))
+    assert (got_lo <= got_hi).all()
+    # the port's own oracle gives the same counts
+    for g, w in zip((got_lo, got_hi), tref.eps_count_band_batch(
+            _t(a), _t(b), 5.7, 6.3, _t(vb))):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("bsz,m,n,d", BATCH_SHAPES)
+@pytest.mark.parametrize("dispatch", ["default", "interpret", "ref"])
+def test_row_min2_batch_matches_reference(bsz, m, n, d, dispatch):
+    a, b, vb = _batch(("min2", bsz, m, n, d), bsz, m, n, d)
+    got_m, got_m2, got_i = tops.row_min2_batch(_t(a), _t(b), _t(vb))
+    aj, bj, vj = jnp.asarray(a), jnp.asarray(b), jnp.asarray(vb)
+    if dispatch == "ref":
+        want_m, want_m2, want_i = jref.row_min2_batch(aj, bj, vj)
+    else:
+        want_m, want_m2, want_i = BAND_DISPATCH[dispatch](
+            jops.row_min2_batch, aj, bj, vj)
+    assert got_m2.dtype == torch.float32 and got_i.dtype == torch.int32
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), **TOL)
+    np.testing.assert_allclose(got_m2.numpy(), np.asarray(want_m2), **TOL)
+    if dispatch == "default":
+        # same direct-difference form on both sides: the same argmin
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    else:
+        _assert_argmin(got_i.numpy(), want_i,
+                       np.asarray(jref.sq_dists_batch(aj, bj)), vb)
+    tm, tm2, ti = tref.row_min2_batch(_t(a), _t(b), _t(vb))
+    np.testing.assert_allclose(got_m2.numpy(), tm2.numpy(), **TOL)
+    if bsz > 1:   # the all-masked slot obeys the (inf, inf, -1) contract
+        assert np.isinf(got_m[0].numpy()).all()
+        assert np.isinf(got_m2[0].numpy()).all()
+        assert (got_i[0].numpy() == -1).all()
+
+
+def test_row_min2_single_candidate_and_duplicate_contract():
+    """One valid candidate -> (d2, inf, idx); a duplicate of the minimum
+    makes the runner-up equal to it (the second order statistic of the
+    distance multiset), also across a chunk boundary of the plain
+    version; the reference agrees."""
+    rng = _rng("min2_single")
+    a = (rng.normal(size=(1, 4, 3)) * 10).astype(np.float32)
+    b = (rng.normal(size=(1, 9, 3)) * 10).astype(np.float32)
+    vb = (np.arange(9) == 5)[None]
+    m, m2, i = tops.row_min2_batch(_t(a), _t(b), _t(vb))
+    jm, jm2, ji = jops.row_min2_batch(jnp.asarray(a), jnp.asarray(b),
+                                      jnp.asarray(vb))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    assert np.isinf(m2.numpy()).all() and (i.numpy() == 5).all()
+    assert (np.asarray(ji) == 5).all()
+    # integer lattice with every candidate duplicated far apart
+    lat = np.rint(b[0] / 3.0).astype(np.float32)
+    big = np.concatenate([lat, lat[::-1]])[None]
+    q = np.rint(a / 3.0).astype(np.float32)
+    for chunk in (None, 2 * 4 * 5):          # 5 candidates per chunk
+        old = tops.PLAIN_CHUNK_ELEMS
+        try:
+            if chunk:
+                tops.PLAIN_CHUNK_ELEMS = chunk
+            m, m2, i = tops.row_min2_batch(_t(q), _t(big))
+        finally:
+            tops.PLAIN_CHUNK_ELEMS = old
+        np.testing.assert_array_equal(m.numpy(), m2.numpy())
+        jm, jm2, ji = jops.row_min2_batch(jnp.asarray(q), jnp.asarray(big))
+        np.testing.assert_array_equal(m2.numpy(), np.asarray(jm2))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        assert (i.numpy() < 9).all()             # the first copy wins
+
+
+@pytest.mark.parametrize("bar", [0, 2, 5, 1000])
+def test_eps_count_band_stop_row_contract(bar):
+    """A row whose lo count is below its bar has scanned every valid
+    candidate; the plain version returns full counts, which satisfy the
+    contract for every bar, and so does the reference's tiled loop."""
+    bsz, m, n, d = 3, 9, 260, 2
+    a, b, vb = _batch(("band_stop", bsz, m, n, d), bsz, m, n, d)
+    rows = _rng("band_stop_bars", bar).integers(0, max(bar, 1) + 1,
+                                                size=(bsz, m))
+    exact_lo = np.asarray(jref.eps_count_batch(jnp.asarray(a), jnp.asarray(b),
+                                               5.7, jnp.asarray(vb)))
+    exact_hi = np.asarray(jref.eps_count_batch(jnp.asarray(a), jnp.asarray(b),
+                                               6.3, jnp.asarray(vb)))
+    got_lo, got_hi = (x.numpy() for x in tops.eps_count_band_batch(
+        _t(a), _t(b), 5.7, 6.3, _t(vb),
+        stop_row=_t(rows.astype(np.int32))))
+    jlo, jhi = (np.asarray(x) for x in jops.eps_count_band_batch(
+        jnp.asarray(a), jnp.asarray(b), 5.7, 6.3, jnp.asarray(vb),
+        stop_row=jnp.asarray(rows, jnp.int32)))
+    for lo, hi in ((got_lo, got_hi), (jlo, jhi)):
+        assert (lo <= exact_lo).all() and (hi <= exact_hi).all()
+        done = lo < rows
+        np.testing.assert_array_equal(lo[done], exact_lo[done])
+        np.testing.assert_array_equal(hi[done], exact_hi[done])
+    np.testing.assert_array_equal(got_lo, exact_lo)
+
+
+def test_flat_gathers_match_reference():
+    """``pairwise_d2_flat`` / ``_res`` against the reference's jnp ops on
+    the same ragged indices (float32; the feature sum may differ in the
+    last bit)."""
+    rng = _rng("flat")
+    d = 3
+    pts = (rng.normal(size=(50, d)) * 10).astype(np.float32)
+    qa = (rng.normal(size=(7, d)) * 3).astype(np.float32)
+    rr = rng.integers(0, 50, 90)
+    qo = np.sort(rng.integers(0, 7, 90))
+    av = (rng.normal(size=(90, d)) * 2).astype(np.float32)
+    got = tops.pairwise_d2_flat(_t(pts), _t(qa), _t(rr), _t(qo), _t(av))
+    want = jops.pairwise_d2_flat(jnp.asarray(pts), jnp.asarray(qa),
+                                 jnp.asarray(rr.astype(np.int32)),
+                                 jnp.asarray(qo.astype(np.int32)),
+                                 jnp.asarray(av))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    rb = rng.integers(0, 50, 90)
+    got = tops.pairwise_d2_flat_res(_t(pts), _t(rr), _t(rb), _t(av))
+    want = jops.pairwise_d2_flat_res(jnp.asarray(pts),
+                                     jnp.asarray(rr.astype(np.int32)),
+                                     jnp.asarray(rb.astype(np.int32)),
+                                     jnp.asarray(av))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (90,)
+
+
+def test_guard_band_wrappers_never_launch_on_cpu_tensors():
+    a, b, vb = _batch(("band_launches",), 2, 4, 9, 3)
+    before = dict(tops.LAUNCHES)
+    assert {"eps_count_band_batch", "row_min2_batch"} <= set(before)
+    tops.eps_count_band_batch(_t(a), _t(b), 5.0, 6.0, _t(vb))
+    tops.row_min2_batch(_t(a), _t(b), _t(vb))
+    assert tops.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_cuda_guard_band_kernels_match_plain_versions_on_the_card():
+    """The two guard-band kernels against their plain versions on an
+    integer lattice with duplicated candidates (equal, not close)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    a, b, vb = _batch(("cuda_band",), 3, 63, 700, 3)
+    a, b = np.rint(a), np.rint(b)
+    b[:, 350:] = b[:, :350]
+    ac, bc, vc = (_t(x).cuda() for x in (a, b, vb))
+    before = dict(tops.LAUNCHES)
+    lo, hi = tops.eps_count_band_batch(ac, bc, 5.5, 6.5, vc)
+    m, m2, i = tops.row_min2_batch(ac, bc, vc)
+    assert tops.LAUNCHES["eps_count_band_batch"] == \
+        before["eps_count_band_batch"] + 1
+    assert tops.LAUNCHES["row_min2_batch"] == before["row_min2_batch"] + 1
+    wlo, whi = tops.eps_count_band_batch_plain(_t(a), _t(b), 5.5, 6.5, _t(vb))
+    wm, wm2, wi = tops.row_min2_batch_plain(_t(a), _t(b), _t(vb))
+    for g, w in ((lo, wlo), (hi, whi), (m, wm), (m2, wm2), (i, wi)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions_on_the_card():
     """The hand-written kernels against their plain versions, on a CUDA
