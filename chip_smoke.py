@@ -32,7 +32,9 @@ result line) as soon as a phase fails:
            decidable query, host held to the nearest-core rule in float64
            on the card), four steps of 85 % predict / 10 % insert / 5 %
            delete on a host-serving index and a device-resident twin
-           (equal after every step), and a snapshot round trip
+           (equal after every step) and a fifth with the resident stages'
+           gates at 0, each stage's flat-gather and host-twin runs
+           counted, and a snapshot round trip
   guard_band  the two guard-band kernels against their plain versions on
            the largest kernel-mode predict call, on the fit's captured
            ``eps_count_batch`` inputs with the served index's band
@@ -52,6 +54,7 @@ prints them, and the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -442,14 +445,66 @@ def check_host_rule(q64, host, near, cpts_np, clab_np, eps2):
     return bad, int(amb.sum())
 
 
+def mutation_step(plane, ds, step, forced, rng, pts, sc, n_ins, n_del,
+                  n_pred, drift, step_s, split):
+    """One step of the serve bench's mix on both planes: insert, delete,
+    predict; the planes' stats, states, answers and the resident mirror
+    must be equal afterwards.  Appends the step's seconds and split;
+    returns the mirror check."""
+    from repro_torch.data.scenarios import _insert_drift, _queries_mixed
+    nonsemantic = {"dist_evals", "t_total", "t_pack", "t_kernel",
+                   "band_fallback"}
+    ins = _insert_drift(rng, pts, sc, n_ins, drift, MUTATION_STEPS)
+    kill = rng.choice(plane["host"].arrival_live(), n_del, replace=False)
+    q = _queries_mixed(rng, pts, sc, n_pred)
+    got = {}
+    for name, ix in plane.items():
+        runs0 = copy.deepcopy(ds.stage_runs)
+        secs0 = copy.deepcopy(ds.stage_s)
+        t0 = time.perf_counter()
+        si = ix.insert(ins)
+        sd = ix.delete(kill)
+        lab, d2 = ix.predict(q, mode=name, return_d2=True)
+        torch.cuda.synchronize()
+        step_s[name].append(time.perf_counter() - t0)
+        got[name] = (si, sd, lab, d2)
+        row = dict(
+            gates="0" if forced else "default",
+            insert_s=si["t_total"], delete_s=sd["t_total"],
+            affected_grids=si["affected_grids"] + sd["affected_grids"],
+            band_fallback=si["band_fallback"] + sd["band_fallback"])
+        if name == "device":
+            row["routes"] = {
+                st: {r: dict(runs=ds.stage_runs[st][r] - runs0[st][r],
+                             s=ds.stage_s[st][r] - secs0[st][r])
+                     for r in ("flat", "host_twin")}
+                for st in ds.stage_runs}
+        split[name].append(row)
+    h, d = plane["host"], plane["device"]
+    for k in (0, 1):
+        for key in set(got["host"][k]) - nonsemantic:
+            require(np.array_equal(got["host"][k][key],
+                                   got["device"][k][key]),
+                    f"step {step}: stats {key} differ between planes")
+    require(np.array_equal(h.labels_arrival(), d.labels_arrival())
+            and np.array_equal(h.core_arrival(), d.core_arrival())
+            and np.array_equal(h.merge_edges, d.merge_edges),
+            f"step {step}: the planes' states differ")
+    require(np.array_equal(got["host"][2], got["device"][2])
+            and np.array_equal(got["host"][3], got["device"][3]),
+            f"step {step}: the planes' answers differ")
+    mm = d.device_state.mirror_matches(d)
+    require(all(mm.values()), f"step {step}: resident mirror {mm}")
+    return mm
+
+
 def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     """Fit with the index, predict in three modes, the mutation stream
     on two planes, a snapshot round trip.  Returns (summary, launches
     of this path, the largest kernel-mode predict call, the index)."""
-    from repro_torch.data.scenarios import (_insert_drift, _queries_mixed,
-                                            get_scenario)
+    from repro_torch.data.scenarios import _queries_mixed, get_scenario
     from repro_torch.engine import cluster, registry
-    from repro_torch.index import GritIndex
+    from repro_torch.index import GritIndex, device_state
     from repro_torch.kernels import ops
 
     n = len(pts)
@@ -565,6 +620,10 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     # fallback (predict_device_async's own split of each batch)
     predict["device"]["pack_s"] = [s["t_pack"] for s in stats["device"]]
     predict["device"]["resolve_s"] = [s["t_kernel"] for s in stats["device"]]
+    predict["device"]["flat_dispatches"] = \
+        idx.device_state.stage_runs["predict"]["flat"]
+    require(predict["device"]["flat_dispatches"] > 0,
+            "device-mode predict never enqueued its flat gather")
     # share of the packed [group_cap, cand_cap] candidate slots that are
     # padding, per batch
     predict["kernel"]["padded_share"] = [
@@ -578,46 +637,29 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
             "resident state")
     step_s = {"host": [], "device": []}
     # per step and plane: where the mutation time went (the stats' own
-    # wall times; t_pack + t_kernel is the device stages' share)
+    # wall times); on the device plane also, per stage, how many runs
+    # enqueued a flat gather on the card and how many the gates sent to
+    # the host float64 twin, with the seconds of each route
     split = {"host": [], "device": []}
-    nonsemantic = {"dist_evals", "t_total", "t_pack", "t_kernel",
-                   "band_fallback"}
+    ds = idx.device_state
     mirror = []
-    for step in range(MUTATION_STEPS):
-        ins = _insert_drift(rng, pts, sc, n_ins, step, MUTATION_STEPS)
-        kill = rng.choice(plane["host"].arrival_live(), n_del, replace=False)
-        q = _queries_mixed(rng, pts, sc, n_pred)
-        got = {}
-        for name, ix in plane.items():
-            t0 = time.perf_counter()
-            si = ix.insert(ins)
-            sd = ix.delete(kill)
-            lab, d2 = ix.predict(q, mode=name, return_d2=True)
-            torch.cuda.synchronize()
-            step_s[name].append(time.perf_counter() - t0)
-            got[name] = (si, sd, lab, d2)
-            split[name].append(dict(
-                insert_s=si["t_total"], delete_s=sd["t_total"],
-                device_stages_s=sum(x[k] for x in (si, sd)
-                                    for k in ("t_pack", "t_kernel")),
-                affected_grids=si["affected_grids"] + sd["affected_grids"],
-                band_fallback=si["band_fallback"] + sd["band_fallback"]))
-        h, d = plane["host"], plane["device"]
-        for k in (0, 1):
-            for key in set(got["host"][k]) - nonsemantic:
-                require(np.array_equal(got["host"][k][key],
-                                       got["device"][k][key]),
-                        f"step {step}: stats {key} differ between planes")
-        require(np.array_equal(h.labels_arrival(), d.labels_arrival())
-                and np.array_equal(h.core_arrival(), d.core_arrival())
-                and np.array_equal(h.merge_edges, d.merge_edges),
-                f"step {step}: the planes' states differ")
-        require(np.array_equal(got["host"][2], got["device"][2])
-                and np.array_equal(got["host"][3], got["device"][3]),
-                f"step {step}: the planes' answers differ")
-        mm = d.device_state.mirror_matches(d)
-        require(all(mm.values()), f"step {step}: resident mirror {mm}")
-        mirror.append(mm)
+    # the four steps of the mix under the default gates, then one more
+    # with the gates at 0, so that every write-half stage of the resident
+    # plane runs its flat gather on the card at least once
+    plan = [(s, False) for s in range(MUTATION_STEPS)] + [(0, True)]
+    gates = (device_state.MIN_FLAT_T, device_state.EDGE_MIN_FLAT_T)
+    try:
+        for step, (drift, forced) in enumerate(plan):
+            if forced:
+                device_state.MIN_FLAT_T = device_state.EDGE_MIN_FLAT_T = 0
+            mirror.append(mutation_step(plane, ds, step, forced, rng, pts, sc,
+                                        n_ins, n_del, n_pred, drift, step_s,
+                                        split))
+    finally:
+        device_state.MIN_FLAT_T, device_state.EDGE_MIN_FLAT_T = gates
+    for st in ("cores", "edges", "border"):
+        require(ds.stage_runs[st]["flat"] > 0, f"the resident plane never "
+                f"ran the {st} stage's flat gather on the card")
     launches = {k: v for k, v in ops.LAUNCHES.items()}
 
     # ---- snapshot round trip -------------------------------------------
@@ -652,8 +694,8 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
                     kernel_decidable=int(decidable.sum()),
                     kernel_mismatches=mism,
                     noise=int((host == -1).sum())),
-        mutation=dict(steps=MUTATION_STEPS, predict=n_pred, insert=n_ins,
-                      delete=n_del, merge_graph_s=merge_graph_s,
+        mutation=dict(steps=len(plan), steps_gates_0=1, predict=n_pred,
+                      insert=n_ins, delete=n_del, merge_graph_s=merge_graph_s,
                       merge_edges=int(len(idx.merge_edges)),
                       step_s=step_s, step_split=split, planes_equal=True,
                       mirror_matches=all(all(m.values()) for m in mirror)),

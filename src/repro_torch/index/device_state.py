@@ -132,6 +132,18 @@ def _d2_flat_res(ds, ra: np.ndarray, rb: np.ndarray, gg: np.ndarray,
         ds.points_res, _to_dev(ds, ra), _to_dev(ds, rb), _to_dev(ds, av))
 
 
+STAGES = ("predict", "cores", "edges", "border")
+
+
+def _note_route(ds, stage: str, route: str, t0: float) -> None:
+    """Count one run of ``stage`` by ``route`` (``"flat"``: a flat
+    gather was enqueued on the resident tensors; ``"host_twin"``: the
+    gate sent the whole stage to its host float64 twin) and add its
+    wall seconds since ``t0``."""
+    ds.stage_runs[stage][route] += 1
+    ds.stage_s[stage][route] += time.perf_counter() - t0
+
+
 class _Timer:
     """Accumulates pack vs kernel seconds into a ctr/stats dict."""
 
@@ -164,6 +176,11 @@ class DeviceState:
         self.caps = ResidentCaps()
         self.uploads = 0          # full/structural buffer ships
         self.in_place = 0         # in-place flag updates (index_fill_)
+        # per stage: runs that enqueued a flat gather vs runs the gate
+        # sent to the host twin, and the seconds of each (the mutation
+        # stats' t_pack / t_kernel lump both routes together)
+        self.stage_runs = {s: {"flat": 0, "host_twin": 0} for s in STAGES}
+        self.stage_s = {s: {"flat": 0.0, "host_twin": 0.0} for s in STAGES}
         pts = index.points
         self.origin = ((pts.min(axis=0) + pts.max(axis=0)) / 2.0
                        if len(pts) else np.zeros(index.d))
@@ -351,10 +368,12 @@ def predict_device_async(index, ds, q: np.ndarray,
         _to_dev(ds, qo_flat), _to_dev(ds, av))
     if stats is not None:
         stats["chunks"] = 1
+    pack_s = time.perf_counter() - tm.t0
     tm.mark("t_pack")
 
     def resolve():
         tm.t0 = time.perf_counter()
+        t_route = tm.t0 - pack_s
         # grit-lint: disable=hot-path-sync -- resolve() IS this stage's single intended block point: f32 distances materialize once here
         d2f = d2dev.cpu().numpy()                 # f32, device math
         # segmented (min, first-arg, runner-up) on host: one C pass
@@ -409,6 +428,7 @@ def predict_device_async(index, ds, q: np.ndarray,
             if stats is not None:
                 stats["uncertain"] = int(len(unc))
         tm.mark("t_kernel")
+        _note_route(ds, "predict", "flat", t_route)
         return out, out_d2
 
     return resolve
@@ -430,6 +450,7 @@ def recompute_cores_device(index, ds, affected: np.ndarray,
     ``demoted`` arrays), with the per-grid count loops replaced by one
     flat ``pairwise_d2_flat_res`` dispatch and segmented host counts."""
     tm = _Timer(ctr)
+    t_start = tm.t0
     pts, core, alive = index.points, index.core, index.alive
     starts, counts = index.starts, index.counts
     live_counts, min_pts = index.live_counts, index.min_pts
@@ -459,6 +480,7 @@ def recompute_cores_device(index, ds, affected: np.ndarray,
         if len(flips):
             ds.flip_core(flips, direction > 0)
         tm.mark("t_kernel")
+        _note_route(ds, "cores", "host_twin", t_start)
         return flips
     # flat candidate rows, grouped in need order (ascending within a
     # grid) -- the flip set reads out of this order, so it matches the
@@ -541,6 +563,8 @@ def recompute_cores_device(index, ds, affected: np.ndarray,
         core[flips] = direction > 0
         ds.flip_core(flips, direction > 0)
     tm.mark("t_kernel")
+    if len(kern):
+        _note_route(ds, "cores", "flat", t_start)
     return flips
 
 
@@ -557,6 +581,7 @@ def decide_edges_device(index, ds, pairs: np.ndarray,
     if len(pairs) == 0:
         return np.zeros(0, bool)
     tm = _Timer(ctr)
+    t_start = tm.t0
     band, lo2, hi2 = ds.thresholds(index)
     hit = np.zeros(len(pairs), bool)
     rem = _bbox_survivors(index, pairs)
@@ -576,6 +601,7 @@ def decide_edges_device(index, ds, pairs: np.ndarray,
         tm.mark("t_pack")
         hit[rem] = _decide_edges_batch(index, pairs[rem], ctr)
         tm.mark("t_kernel")
+        _note_route(ds, "edges", "host_twin", t_start)
         return hit
     aflat = core_rows[_expand(cstarts[a], sizes_a)]
     bflat = core_rows[_expand(cstarts[b], sizes_b)]
@@ -604,6 +630,8 @@ def decide_edges_device(index, ds, pairs: np.ndarray,
         ctr["band_fallback"] = ctr.get("band_fallback", 0) + len(unc)
         hit[rem[unc]] = _decide_edges_batch(index, pairs[rem[unc]], ctr)
     tm.mark("t_kernel")
+    if len(psel):
+        _note_route(ds, "edges", "flat", t_start)
     return hit
 
 
@@ -623,6 +651,7 @@ def border_pass_device(index, ds, rows: np.ndarray,
     if len(rows) == 0:
         return
     tm = _Timer(ctr)
+    t_start = tm.t0
     pts, lab = index.points, index.labels
     eps2 = index.eps * index.eps
     band, _, _ = ds.thresholds(index)
@@ -653,6 +682,7 @@ def border_pass_device(index, ds, rows: np.ndarray,
         tm.mark("t_pack")
         _border_pass_host(index, rows, grid_of, ctr)
         tm.mark("t_kernel")
+        _note_route(ds, "border", "host_twin", t_start)
         return
     crows = core_rows[_expand(cstarts[gflat], ccounts[gflat])]
     b_offs = np.cumsum(sizes_b) - sizes_b
@@ -699,3 +729,5 @@ def border_pass_device(index, ds, rows: np.ndarray,
         ctr["band_fallback"] = ctr.get("band_fallback", 0) + len(unc)
         _border_pass_host(index, unc, grid_of, ctr)
     tm.mark("t_kernel")
+    if len(kern):
+        _note_route(ds, "border", "flat", t_start)

@@ -21,8 +21,8 @@ hand-written kernels of ``csrc/pairwise.cu`` (built at first use, see
 ``build.py``) or raise: there is no fallback on the card.  CPU tensors
 take the plain PyTorch versions in this module
 (``eps_count_batch_plain`` / ``row_min_batch_plain``), which are also
-what the kernels are held against on the card.  ``FORCE_REF = True``
-routes everything through the ``aa + bb - 2ab`` oracles of ``ref.py``.
+what the kernels are held against on the card.  The ``aa + bb - 2ab``
+oracles of ``ref.py`` are for tests; no wrapper calls them.
 
 Padding and masking: the kernels take arbitrary ``M``, ``N`` and ``d``
 and read the validity masks themselves, so nothing is padded to tile
@@ -63,9 +63,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import build, ref
-
-FORCE_REF = False
+from . import build
 
 LAUNCHES: Dict[str, int] = {"eps_count": 0, "row_min": 0,
                             "eps_count_batch": 0, "row_min_batch": 0,
@@ -354,8 +352,6 @@ def eps_count_batch(a: torch.Tensor, b: torch.Tensor, eps,
     ``eps`` of each a-row of slot g.  ``stop_at`` enables the saturating
     early-exit contract (module docstring); ``valid_a`` only feeds that
     exit and lets the kernel skip masked rows."""
-    if FORCE_REF:
-        return ref.eps_count_batch(a, b, eps, valid_b)
     if not a.is_cuda:
         return eps_count_batch_plain(a.to(torch.float32),
                                      b.to(torch.float32), eps, valid_b)
@@ -375,8 +371,6 @@ def row_min_batch(a: torch.Tensor, b: torch.Tensor,
     Returns ([B, M] f32 min squared distance, [B, M] int32 first argmin
     into slot g's b-rows); a row with no valid candidate reports
     ``(inf, -1)``."""
-    if FORCE_REF:
-        return ref.row_min_batch(a, b, valid_b)
     if not a.is_cuda:
         return row_min_batch_plain(a.to(torch.float32), b.to(torch.float32),
                                    valid_b)
@@ -398,8 +392,6 @@ def eps_count_band_batch(a: torch.Tensor, b: torch.Tensor, eps_lo, eps_hi,
     squared in float32) from one sweep over the candidates.
     ``stop_row`` ([B, M] int32) is the per-row saturating bar on the lo
     count (module docstring)."""
-    if FORCE_REF:
-        return ref.eps_count_band_batch(a, b, eps_lo, eps_hi, valid_b)
     if not a.is_cuda:
         return eps_count_band_batch_plain(a.to(torch.float32),
                                           b.to(torch.float32), eps_lo,
@@ -439,8 +431,6 @@ def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
     [B, M] int32).  ``min2 - min`` lower-bounds the argmin's margin, the
     guard band's argmin-certainty test (module docstring for the
     no-candidate and tie rules)."""
-    if FORCE_REF:
-        return ref.row_min2_batch(a, b, valid_b)
     if not a.is_cuda:
         return row_min2_batch_plain(a.to(torch.float32), b.to(torch.float32),
                                     valid_b)
@@ -467,8 +457,6 @@ def eps_count(a: torch.Tensor, b: torch.Tensor, eps,
               valid_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Count of b-points within ``eps`` of each a-point: a [M, d],
     b [N, d], valid_b [N] -> [M] int32."""
-    if FORCE_REF:
-        return ref.eps_count(a, b, eps, valid_b)
     if not a.is_cuda:
         vb = None if valid_b is None else valid_b[None]
         return eps_count_batch_plain(a.to(torch.float32)[None],
@@ -487,8 +475,6 @@ def row_min(a: torch.Tensor, b: torch.Tensor,
     """Per-row (min squared distance, first argmin) into b: a [M, d],
     b [N, d], valid_b [N] -> ([M] f32, [M] int32); ``(inf, -1)`` for a
     row with no valid candidate."""
-    if FORCE_REF:
-        return ref.row_min(a, b, valid_b)
     if not a.is_cuda:
         vb = None if valid_b is None else valid_b[None]
         mins, args = row_min_batch_plain(a.to(torch.float32)[None],

@@ -4,8 +4,7 @@ The semantic ground truth in the ``aa + bb - 2ab`` form, float32, the
 same form as the oracle of the JAX package (``repro.kernels.ref``), so
 the two packages' oracles can be compared directly.  These materialize
 the whole ``[.., M, N]`` distance tensor and are meant for tests and
-small inputs; the wrappers in ``ops.py`` never call them unless
-``FORCE_REF`` is set.
+small inputs; the wrappers in ``ops.py`` never call them.
 """
 
 from __future__ import annotations

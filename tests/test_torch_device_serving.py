@@ -170,6 +170,37 @@ def test_default_gates_differential():
     pl.predict(pts[:64], "gated")
 
 
+@pytest.mark.parametrize("gates", ["zero", "default"])
+def test_stage_routes_are_counted(gates):
+    """``stage_runs`` / ``stage_s`` say which route every resident stage
+    took: with the gates at 0 each write-half stage enqueues its flat
+    gather and none runs its host twin; under the default gates the
+    small catalogue sends every write-half stage to its host twin.
+    Device predict always gathers flat."""
+    if gates == "default":
+        device_state.MIN_FLAT_T, device_state.EDGE_MIN_FLAT_T = _DEFAULT_GATES
+    sc = get_churn_scenario("churn-split-2d")
+    pl = Planes(sc.fit_points(), sc.base.eps, sc.base.min_pts)
+    ds = pl.dev.device_state
+    assert all(v == 0 for r in ds.stage_runs.values() for v in r.values())
+    for i, (op, arg) in enumerate(sc.ops(0)):
+        pl.op(op, arg, ("routes", gates, op, i))
+    for i in range(3):
+        pl.predict(sc.fit_points()[i * 16:(i + 1) * 16], ("routes", i))
+    runs = ds.stage_runs
+    assert runs["predict"] == {"flat": 3, "host_twin": 0}
+    write = ("cores", "edges", "border")
+    if gates == "zero":
+        assert all(runs[s]["flat"] > 0 and runs[s]["host_twin"] == 0
+                   for s in write), runs
+    else:
+        assert all(runs[s]["flat"] == 0 and runs[s]["host_twin"] > 0
+                   for s in write), runs
+    for s, r in runs.items():
+        for route, k in r.items():
+            assert (ds.stage_s[s][route] > 0) == (k > 0), (s, route)
+
+
 def test_delete_split_differential():
     rng = np.random.default_rng(_seed("split"))
     left = rng.normal(size=(60, 2), scale=0.3)

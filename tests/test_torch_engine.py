@@ -118,18 +118,6 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
     assert tengine.resolve_auto("cuda:0") == "device-kernels"
 
 
-def test_return_index_names_the_next_slice():
-    """``return_index=True`` attaches the fitted ``GritIndex`` (the slice
-    that used to raise here): its labels and core flags are the fit's."""
-    from repro_torch.index import GritIndex
-    pts = SCENARIOS["blobs-2d"].points()
-    res = tengine.cluster(pts, 2500.0, 6, engine="grit", device="cpu",
-                          return_index=True)
-    assert isinstance(res.index, GritIndex)
-    np.testing.assert_array_equal(res.index.labels_arrival(), res.labels)
-    np.testing.assert_array_equal(res.index.core_arrival(), res.core)
-
-
 # --------------------------------------------------------------------------
 # caps: estimation, growth, attempt trail
 # --------------------------------------------------------------------------

@@ -33,7 +33,6 @@ from repro_torch.index.snapshot_io import (check_version, load_snapshot,
 SERVING = sorted(s.name for s in tsc.serving_scenarios())
 # scenario kind -> (getter, name -> scenario map), in both packages
 KINDS = {"serving": ("get_serving_scenario", "serving_scenario_map"),
-         "dist": ("get_dist_serving_scenario", "dist_serving_scenario_map"),
          "churn": ("get_churn_scenario", "churn_scenario_map")}
 FIELDS = ("points", "arrival", "ids", "starts", "counts", "core", "labels",
           "mins", "id_shift", "alive", "live_counts")
@@ -86,7 +85,6 @@ def _decidable(pts, core, q, eps):
 
 @pytest.mark.parametrize("kind,name", [
     ("serving", s.name) for s in tsc.serving_scenarios()] + [
-    ("dist", s.name) for s in tsc.dist_serving_scenarios()] + [
     ("churn", s.name) for s in tsc.churn_scenarios()])
 def test_serving_and_churn_generators_draw_the_same_arrays(kind, name):
     get, catalogue = KINDS[kind]
@@ -109,6 +107,29 @@ def test_serving_and_churn_generators_draw_the_same_arrays(kind, name):
                 np.testing.assert_array_equal(g, w)
     assert sorted(getattr(tsc, catalogue)()) == \
         sorted(getattr(jsc, catalogue)())
+
+
+@pytest.mark.parametrize("base", ["cross-slab-2d", "cross-slab-3d",
+                                  "blobs-2d"])
+def test_slab_band_generators_draw_the_same_arrays(base):
+    """The cut-band query and insert generators (the traffic of the
+    reference's distributed-serving catalogue) draw the reference's
+    numbers from the same seed."""
+    sc = tsc.get_scenario(base)
+    pts = sc.points(seed=0)
+    np.testing.assert_array_equal(tsc._quantile_cuts(pts),
+                                  jsc._quantile_cuts(pts))
+    for step in range(3):
+        got = [tsc._queries_slab_band(np.random.default_rng(step), pts, sc,
+                                      64),
+               tsc._insert_slab_drift(np.random.default_rng(step), pts, sc,
+                                      40, step, 3)]
+        want = [jsc._queries_slab_band(np.random.default_rng(step), pts,
+                                       jsc.get_scenario(base), 64),
+                jsc._insert_slab_drift(np.random.default_rng(step), pts,
+                                       jsc.get_scenario(base), 40, step, 3)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("name", SERVING)

@@ -142,21 +142,43 @@ def test_torch_oracle_matches_jax_oracle(d):
     assert np.isinf(tm.numpy()).all() and (ti.numpy() == -1).all()
 
 
-def test_force_ref_routes_through_the_oracle(monkeypatch):
-    a, b, vb = _batch(("force_ref",), 2, 7, 19, 3)
-    plain = tops.eps_count_batch(_t(a), _t(b), 6.0, _t(vb))
-    calls = []
-    real = tref.eps_count_batch
-    monkeypatch.setattr(tops, "FORCE_REF", True)
-    monkeypatch.setattr(tref, "eps_count_batch",
-                        lambda *x: calls.append(1) or real(*x))
-    forced = tops.eps_count_batch(_t(a), _t(b), 6.0, _t(vb))
-    assert calls == [1]
-    np.testing.assert_array_equal(plain.numpy(), forced.numpy())
-    m1, i1 = tops.row_min_batch(_t(a), _t(b), _t(vb))
-    m2, i2 = tref.row_min_batch(_t(a), _t(b), _t(vb))
-    np.testing.assert_array_equal(i1.numpy(), i2.numpy())
-    np.testing.assert_array_equal(m1.numpy(), m2.numpy())
+_CPU_WRAPPERS = {
+    "eps_count_batch": (lambda a, b, vb: tops.eps_count_batch(a, b, 6.0, vb),
+                        lambda a, b, vb: tops.eps_count_batch_plain(
+                            a, b, 6.0, vb)),
+    "row_min_batch": (tops.row_min_batch, tops.row_min_batch_plain),
+    "eps_count_band_batch": (
+        lambda a, b, vb: tops.eps_count_band_batch(a, b, 5.5, 6.5, vb),
+        lambda a, b, vb: tops.eps_count_band_batch_plain(a, b, 5.5, 6.5, vb)),
+    "row_min2_batch": (tops.row_min2_batch, tops.row_min2_batch_plain),
+    "eps_count": (lambda a, b, vb: tops.eps_count(a[1], b[1], 6.0, vb[1]),
+                  lambda a, b, vb: tops.eps_count_batch_plain(
+                      a[1:2], b[1:2], 6.0, vb[1:2])[0]),
+    "row_min": (lambda a, b, vb: tops.row_min(a[1], b[1], vb[1]),
+                lambda a, b, vb: tuple(
+                    x[0] for x in tops.row_min_batch_plain(a[1:2], b[1:2],
+                                                          vb[1:2]))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CPU_WRAPPERS))
+def test_cpu_wrapper_takes_the_plain_version(name, monkeypatch):
+    """On CPU tensors every wrapper returns its plain version's result and
+    never reaches the ``aa + bb - 2ab`` oracles (only tests call them)."""
+    for fn in ("sq_dists", "sq_dists_batch", "eps_count", "row_min",
+               "eps_count_batch", "row_min_batch", "eps_count_band_batch",
+               "row_min2_batch"):
+        monkeypatch.setattr(tref, fn, lambda *x, **k: pytest.fail(
+            "a wrapper called the oracle"))
+    a, b, vb = _batch(("cpu_wrapper", name), 3, 7, 19, 3)
+    wrapper, plain = _CPU_WRAPPERS[name]
+    got, want = wrapper(_t(a), _t(b), _t(vb)), plain(_t(a), _t(b), _t(vb))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 @pytest.mark.parametrize("stop_at", [1, 3, 8, 1000])
