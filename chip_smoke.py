@@ -40,10 +40,29 @@ result line) as soon as a phase fails:
            ``eps_count_batch`` inputs with the served index's band
            thresholds (with and without the per-row MinPts bar), on
            integer lattices (equal) and on random reals
+  flash    the flash-attention kernel against its plain version (float32
+           within 2e-4; bfloat16 within 2^-7·|want| + 1e-4 elementwise,
+           one bf16 ulp of the output; both with a mean error under 1e-3
+           of the mean |want|) at the LM path's shapes
+           (qwen2-1.5b prefill after the GQA broadcast, 8,192-token
+           prefill, gemma2's windowed soft-capped layer) and at ragged,
+           non-causal, decode, chunked-prefix and small-head shapes;
+           CUDA-event times beside the bound and, where one call computes
+           the same function, ``F.scaled_dot_product_attention``
+  lm       qwen2-1.5b at full width (float32 params from a seeded
+           generator, bfloat16 activations) served through
+           ``launch.serve.serve_requests`` with the flash kernel: (a) the
+           reference CLI's traffic (8 requests of 4 - 16 tokens, 4 slots,
+           16 new tokens), (b) 4 prompts of 1,500 - 2,048 tokens and one
+           of 8,192; 28 flash launches per prefill; then one prefill of
+           (b) again with the plain attention path (last-position logits
+           within 3e-2 of the largest logit in bfloat16, 1e-3 in float32
+           at 4 layers)
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
-``launches`` is the sum over the fit's cold run and the serve phase.
+``launches`` is the sum over the fit's cold run, the serve phase and the
+lm phase.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -69,12 +88,14 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores, bf16 tensor-core rate
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 MIN_PTS = 64
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/pairwise.cu"
+PAIRWISE_SOURCE = "src/repro_torch/kernels/csrc/pairwise.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "eps_count_batch": "src/repro/kernels/pairwise.py:164",
     "row_min_batch": "src/repro/kernels/pairwise.py:317",
@@ -82,6 +103,7 @@ REPLACES = {
     "row_min": "src/repro/kernels/pairwise.py:120",
     "eps_count_band_batch": "src/repro/kernels/pairwise.py:208",
     "row_min2_batch": "src/repro/kernels/pairwise.py:270",
+    "flash_attention": "src/repro/kernels/flash_attention.py:120",
 }
 # serving traffic: batches of the serve bench's size, and its mix per
 # mutation step (85 % predict, 10 % insert, 5 % delete)
@@ -862,6 +884,254 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
 
 
 # --------------------------------------------------------------------------
+# flash attention vs its plain version
+# --------------------------------------------------------------------------
+
+# (case, B, H, Sq, Sk, D, dtype, causal, window, softcap)
+FLASH_CASES = [
+    ("qwen2_prefill", 4, 12, 2048, 2048, 128, "bfloat16", True, None, None),
+    ("prefill_8192", 1, 12, 8192, 8192, 128, "bfloat16", True, None, None),
+    ("gemma2_local", 1, 32, 8192, 8192, 128, "bfloat16", True, 4096, 50.0),
+    ("noncausal", 2, 8, 1500, 1500, 64, "float32", False, None, None),
+    ("decode", 4, 12, 1, 4100, 128, "bfloat16", True, None, None),
+    ("chunked_prefix", 2, 12, 64, 192, 128, "bfloat16", True, None, None),
+    ("unaligned", 2, 12, 100, 100, 128, "float32", True, None, None),
+    ("head_dim_16", 2, 8, 1000, 1000, 16, "float32", True, 256, None),
+    ("head_dim_32", 2, 8, 1000, 1000, 32, "bfloat16", True, None, 30.0),
+    ("head_dim_80", 1, 32, 2048, 2048, 80, "bfloat16", True, None, None),
+]
+# the kernel against its plain version, elementwise |got - want| <=
+# rtol·|want| + atol, and mean |got - want| <= FLASH_MEAN_REL·mean |want|.
+# float32: the reference's flash tolerance.  bfloat16: both sides round
+# the same float32 function to bf16, so they may differ by one bf16 ulp
+# of the output (at most 2^-7 of it) plus the float32 rounding of the sums
+FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+FLASH_MEAN_REL = 1e-3
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head, queries right-aligned."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def sdpa_call(q, k, v, causal, window, softcap):
+    """One ``F.scaled_dot_product_attention`` call computing the same
+    function (timed as a yardstick only; the port never calls it), or
+    None where none does (the tanh soft-cap)."""
+    import torch.nn.functional as F
+    if softcap is not None:
+        return None
+    Sq, Sk = q.shape[2], k.shape[2]
+    if causal and window is None and Sq == Sk:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    if bool(mask.all()):
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def flash_phase(dev, seed):
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 40_000)
+    rows = []
+    for name, B, H, Sq, Sk, D, dt, causal, window, cap in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((B, H, n, D), generator=gen, device=dev)
+                   .to(dtype) for n in (Sq, Sk, Sk))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ops.flash_attention_plain(q, k, v, **kw)
+        require(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                f"flash_attention {name}: wrong dtype or non-finite output")
+        rtol, atol = FLASH_TOL[dt]
+        diff = (got.float() - want.float()).abs()
+        mag = want.float().abs()
+        err = float(diff.max().item())
+        # the largest error as a share of its element's bound (<= 1 passes)
+        worst = float((diff / (rtol * mag + atol)).max().item())
+        mean_rel = float((diff.mean() / mag.mean()).item())
+        require(worst <= 1.0 and mean_rel <= FLASH_MEAN_REL,
+                f"flash_attention differs from its plain version on {name}: "
+                f"max abs {err}, {worst} of the elementwise bound, mean "
+                f"{mean_rel} of mean |want|")
+        del got, want, diff, mag
+        esize = q.element_size()
+        nbytes = esize * 2.0 * B * H * (Sq + Sk) * D
+        nops = 4.0 * D * B * H * live_pairs(Sq, Sk, causal, window)
+        peak = PEAK_BF16_OPS_S if dt == "bfloat16" else PEAK_F32_OPS_S
+        tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak * 1e3
+        lib = sdpa_call(q, k, v, causal, window, cap)
+        rows.append(dict(
+            case=name, shape=[B, H, Sq, Sk, D], dtype=dt, causal=causal,
+            window=window, softcap=cap, max_abs_err=err,
+            bound_share=worst, mean_rel_err=mean_rel,
+            tolerance=dict(rtol=rtol, atol=atol, mean_rel=FLASH_MEAN_REL),
+            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            plain_ms=cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw),
+                             reps=2, warmup=1),
+            bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+            library_ms=None if lib is None else cuda_ms(lib)))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
+# lm: qwen2-1.5b served through the flash kernel
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-1.5b"
+LM_NEW = 16
+
+
+def _first_groups(tree, n):
+    if isinstance(tree, dict):
+        return {k: _first_groups(v, n) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_first_groups(v, n) for v in tree)
+    return tree[:n]
+
+
+def _serve_part(cfg, params, reqs, slots, max_len, dev):
+    """Serve ``reqs`` with the launch counts at 0; returns the part's
+    readings and its flash launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_requests
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    done = serve_requests(cfg, params, reqs, batch_slots=slots,
+                          max_len=max_len, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_prefill = len(stats["prefill_s"])
+    per_layer = cfg.num_layers
+    require(launches["flash_attention"] == per_layer * n_prefill,
+            f"lm: {launches['flash_attention']} flash_attention launches for "
+            f"{n_prefill} prefill calls of {per_layer} layers")
+    tokens = sum(len(r.out) for r in done)
+    require(all(len(r.out) == r.max_new for r in done)
+            and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+            "lm: a request got the wrong number of tokens or an id out of "
+            "the vocabulary")
+    dec = stats["decode_s"]
+    return dict(
+        requests=len(done), slots=slots, max_len=max_len,
+        prompt_lens=[len(r.prompt) for r in done],
+        prefill_len=stats["prefill_len"],
+        prefill_ms=[1e3 * x for x in stats["prefill_s"]],
+        decode_ms_median=1e3 * float(np.median(dec)),
+        decode_ms_mean=1e3 * float(np.mean(dec)), decode_steps=len(dec),
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        flash_launches=launches["flash_attention"],
+        flash_launches_per_prefill=launches["flash_attention"] / n_prefill,
+        first_out=done[0].out[:8]), launches
+
+
+def _compare_prefill(cfg, params, toks, dev):
+    """Last-position logits of one prefill with the flash kernel and with
+    the plain attention path: (max |diff| / max |logit|, greedy-token
+    agreement)."""
+    from repro_torch.models import init_cache, prefill
+    out = {}
+    for flash in (True, False):
+        c = cfg.with_overrides(use_flash_kernel=flash)
+        cache = init_cache(c, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+        out[flash], _ = prefill(c, params, {"tokens": toks}, cache)
+        del cache
+        torch.cuda.empty_cache()
+    f, p = out[True], out[False]
+    require(bool(torch.isfinite(f).all()), "lm: non-finite logits")
+    rel = float((f - p).abs().max().item() / p.abs().max().item())
+    agree = float((f.argmax(-1) == p.argmax(-1)).float().mean().item())
+    return rel, agree
+
+
+def lm_phase(dev, seed):
+    """Returns (summary, per-kernel launches of the served parts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (Request, _pow2_at_least,
+                                          cli_requests)
+    from repro_torch.models import count_params, init_params
+    cfg = get_config(LM_ARCH).with_overrides(use_flash_kernel=True)
+    require((cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.num_heads,
+             cfg.num_kv_heads, cfg.head_dim) == (28, 1536, 151936, 12, 2, 128),
+            f"lm: {LM_ARCH} is not at its published width")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(cfg)
+    params_bytes = torch.cuda.max_memory_allocated()
+
+    parts = {}
+    # (a) the reference CLI's traffic
+    parts["cli"], la = _serve_part(cfg, params, cli_requests(cfg, 8, LM_NEW),
+                                   4, 128, dev)
+    rng = np.random.default_rng(seed + 50_000)
+    long_reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                         size=int(n)).tolist(), LM_NEW)
+                 for i, n in enumerate(rng.integers(1500, 2049, size=4))]
+    require(_pow2_at_least(max(len(r.prompt) for r in long_reqs)) == 2048,
+            "lm: the long prompts do not bucket to 2,048")
+    # (b) four long prompts in one batch, then one of 8,192 tokens
+    parts["long_2048"], lb = _serve_part(cfg, params, long_reqs, 4,
+                                         2048 + LM_NEW, dev)
+    req_8k = [Request(4, rng.integers(0, cfg.vocab_size, size=8192).tolist(),
+                      LM_NEW)]
+    parts["long_8192"], lc = _serve_part(cfg, params, req_8k, 1,
+                                         8192 + LM_NEW, dev)
+    launches = {k: la[k] + lb[k] + lc[k] for k in la}
+
+    # the batch of (b) again: flash against the plain attention path, in
+    # bfloat16 at full depth and in float32 at 4 layers
+    toks = np.zeros((4, 2048), np.int64)
+    for i, r in enumerate(long_reqs):
+        toks[i, 2048 - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).to(dev)
+    rel_bf16, agree_bf16 = _compare_prefill(cfg, params, toks, dev)
+    require(rel_bf16 <= 3e-2, f"lm: flash and plain prefill logits differ "
+            f"by {rel_bf16} of the largest logit (bfloat16)")
+    cfg4 = cfg.with_overrides(num_layers=4, dtype="float32")
+    params4 = dict(params, blocks=_first_groups(params["blocks"], 4))
+    rel_f32, agree_f32 = _compare_prefill(cfg4, params4, toks, dev)
+    require(rel_f32 <= 1e-3, f"lm: flash and plain prefill logits differ "
+            f"by {rel_f32} of the largest logit (float32, 4 layers)")
+    del params, params4
+    torch.cuda.empty_cache()
+    summary = dict(
+        arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+        vocab=cfg.vocab_size, params=n_params, param_dtype=cfg.param_dtype,
+        dtype=cfg.dtype, init_s=init_s, params_bytes=params_bytes,
+        parts=parts,
+        flash_vs_plain=dict(
+            bf16_rel=rel_bf16, bf16_tol=3e-2, bf16_greedy_agree=agree_bf16,
+            f32_4layers_rel=rel_f32, f32_tol=1e-3,
+            f32_greedy_agree=agree_f32, batch=[4, 2048]))
+    return summary, launches
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1024,20 +1294,54 @@ def main() -> int:
                    "on random reals",
          shapes={r["name"]: r["shape"] for r in band_rows_},
          fit_widths=band_tiers, script_s=time.perf_counter() - t_script)
+    after_band = dict(ops.LAUNCHES)
+    del index, predict_call, band_tiers, pts, res, warm, staged, plain
+    torch.cuda.empty_cache()
 
-    # launches on the two driven paths (the cold fit, the serve phase);
-    # launches_script also counts the comparison launches
-    kernels = [dict(name=r["name"], route="cuda", source=KERNEL_SOURCE,
+    # ---- flash attention ------------------------------------------------
+    flash_rows = flash_phase(dev, args.seed)
+    emit("flash", cases=flash_rows, script_s=time.perf_counter() - t_script)
+    flash_compare = ops.LAUNCHES["flash_attention"]
+    torch.cuda.empty_cache()
+
+    # ---- lm -------------------------------------------------------------
+    lm, lm_launches = lm_phase(dev, args.seed)
+    emit("lm", **lm, script_s=time.perf_counter() - t_script)
+    torch.cuda.empty_cache()
+
+    # launches on the three driven paths (the cold fit, the serve phase,
+    # the lm phase's served parts), each counted on its own run; the
+    # distance kernels have no place on the lm path and flash none on
+    # the other two; launches_script also counts the comparison launches
+    by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
+                      "lm": lm_launches[name]} for name in REPLACES}
+    for name, paths in by_path.items():
+        off = ("fit", "serve") if name == "flash_attention" else ("lm",)
+        require(all(paths[p] == 0 for p in off),
+                f"{name} launched on a path it has no place on: {paths}")
+    kernels = [dict(name=r["name"], route="cuda", source=PAIRWISE_SOURCE,
                     replaces=REPLACES[r["name"]],
-                    launches=launches[r["name"]] + serve_launches[r["name"]],
-                    launches_by_path={"fit": launches[r["name"]],
-                                      "serve": serve_launches[r["name"]]},
+                    launches=sum(by_path[r["name"]].values()),
+                    launches_by_path=by_path[r["name"]],
                     launches_script=(before_serve[r["name"]]
-                                     + ops.LAUNCHES[r["name"]]),
+                                     + after_band[r["name"]]
+                                     + lm_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None)
                for r in rows + band_rows_]
+    fr = flash_rows[0]                  # the slice's prefill shape
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces=REPLACES["flash_attention"],
+        launches=sum(by_path["flash_attention"].values()),
+        launches_by_path=by_path["flash_attention"],
+        launches_script=(before_serve["flash_attention"]
+                         + flash_compare + lm_launches["flash_attention"]),
+        shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
+        ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
+        bound_by=fr["bound_by"], library_ms=fr["library_ms"]))
+    require(len(kernels) == 7, f"{len(kernels)} kernels in the summary")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,3 @@
+"""Arch configs (one module per architecture the port runs)."""
+
+from .registry import ARCHS, canonical, get_config

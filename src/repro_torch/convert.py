@@ -1,10 +1,14 @@
 """State carried between numpy (or another package's arrays) and the port.
 
-There are no weights in this system; the state is points, caps and the
-stage tables.  These functions build the port's dataclasses from plain
-numpy fields and turn them back into numpy, so that stage *k* of the
-port can be fed with another implementation's output of stage *k-1*
-and a fault is found in the stage that has it.
+The clustering state is points, caps and the stage tables.  These
+functions build the port's dataclasses from plain numpy fields and turn
+them back into numpy, so that stage *k* of the port can be fed with
+another implementation's output of stage *k-1* and a fault is found in
+the stage that has it.  The LM's state is its parameter tree:
+``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry a tree of numpy
+arrays in the reference's layout (nested dicts, the blocks a tuple of
+dicts stacked on a leading group axis) to tensors and back, so that both
+packages compute with the same weights.
 """
 
 from __future__ import annotations
@@ -32,6 +36,26 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 def _numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """The port's LM params from a tree of numpy arrays (or anything
+    ``np.asarray`` takes) of the same layout; each leaf keeps its dtype
+    (float32, the ``param_dtype`` of every ported config)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(lm_params_from_numpy(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def lm_params_to_numpy(tree):
+    """The inverse of :func:`lm_params_from_numpy`."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(lm_params_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
 
 
 def caps_from_dict(fields: Dict) -> GritCaps:

@@ -2,8 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``<build dir>/lib<name>-<hash>.so``, then
-loaded with ``ctypes``.  The hash is of the source text and the flags,
-so an edited source never meets a stale library.  Nothing is built or
+loaded with ``ctypes``.  Every source gets ``NVCC_FLAGS`` and its own
+entry of ``SOURCE_FLAGS``: the distance kernels are built with
+``-fmad=false`` (each squared term rounded as in their plain versions),
+flash attention without it (its dot products are fused multiply-adds).
+The hash is of the source text and the source's flags, so an edited
+source or flag never meets a stale library.  Nothing is built or
 loaded when this module is imported: :func:`load` does both at first
 use, and :func:`build_all` starts one compiler per source, all at once,
 for callers that want every kernel ready up front.
@@ -25,7 +29,8 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"pairwise": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -55,12 +60,17 @@ def _nvcc() -> str:
         "CUDA kernels cannot be built on this machine")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise KeyError(f"no kernel source {src}")
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:12]
     return src, build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -73,7 +83,7 @@ def _start(name: str):
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *flags(name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 

@@ -1,6 +1,6 @@
-"""Public wrappers of the pairwise-distance kernels.
+"""Public wrappers of the pairwise-distance and attention kernels.
 
-Six kernel functions, same signatures and contracts as
+Seven kernel functions, same signatures and contracts as
 ``repro.kernels.ops``:
 
 * ``eps_count(a, b, eps, valid_b)``  -> [M] int32
@@ -11,18 +11,24 @@ Six kernel functions, same signatures and contracts as
   -> ([B, M] int32 hits at ``eps_lo``, [B, M] int32 hits at ``eps_hi``)
 * ``row_min2_batch(a, b, valid_b)``  -> ([B, M] f32 min, [B, M] f32
   runner-up, [B, M] int32 first argmin)
+* ``flash_attention(q, k, v, causal, window, softcap, scale)`` -> [B, H,
+  Sq, D] in q's dtype (blocked online-softmax attention, right-aligned)
 
 and the two flat ragged gathers of the resident serving plane,
 ``pairwise_d2_flat`` / ``pairwise_d2_flat_res``, which are plain
 gather-and-reduce in the reference too (no kernel of their own).
 
 Dispatch is by where the tensors live.  CUDA tensors launch the
-hand-written kernels of ``csrc/pairwise.cu`` (built at first use, see
-``build.py``) or raise: there is no fallback on the card.  CPU tensors
-take the plain PyTorch versions in this module
-(``eps_count_batch_plain`` / ``row_min_batch_plain``), which are also
+hand-written kernels of ``csrc/pairwise.cu`` and
+``csrc/flash_attention.cu`` (built at first use, see ``build.py``) or
+raise: there is no fallback on the card.  CPU tensors take the plain
+PyTorch versions in this module (``eps_count_batch_plain``,
+``row_min_batch_plain``, ..., ``flash_attention_plain``), which are also
 what the kernels are held against on the card.  The ``aa + bb - 2ab``
 oracles of ``ref.py`` are for tests; no wrapper calls them.
+``flash_attention_plain`` builds its logits and mask with
+``ref.masked_logits``, the helper of the attention oracle ``ref.mha``,
+so the masking convention lives in one place.
 
 Padding and masking: the kernels take arbitrary ``M``, ``N`` and ``d``
 and read the validity masks themselves, so nothing is padded to tile
@@ -63,17 +69,21 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import build
+from . import build, ref
 
 LAUNCHES: Dict[str, int] = {"eps_count": 0, "row_min": 0,
                             "eps_count_batch": 0, "row_min_batch": 0,
-                            "eps_count_band_batch": 0, "row_min2_batch": 0}
+                            "eps_count_band_batch": 0, "row_min2_batch": 0,
+                            "flash_attention": 0}
 
 # the plain versions never hold a [B, P, chunk] tensor above this many
 # elements (128 MiB of float32)
 PLAIN_CHUNK_ELEMS = 1 << 25
 # query rows per slot when one candidate set is shared (unbatched calls)
 ROWS_PER_SLOT = 32
+# head dims the flash-attention kernel is instantiated for
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -226,6 +236,36 @@ def pairwise_d2_flat_res(points_res: torch.Tensor, ra: torch.Tensor,
     return (diff * diff).sum(dim=1)
 
 
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`: the kernel's function in
+    float32 (logits, softmax and the product with v; p stays float32),
+    one softmax over all keys per chunk of query rows, the output cast
+    to q's dtype.  A row with no live key gives 0, as in the kernel."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    if Sk == 0:
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    step = _chunk(B * H * Sk, Sq)
+    for s in range(0, Sq, step):
+        logits, mask = ref.masked_logits(
+            q[:, :, s:s + step], kf, q_offset=s + Sk - Sq, causal=causal,
+            window=window, softcap=softcap, scale=scale)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        o = (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.where(mask.any(dim=-1)[:, None], o, 0.0)
+        out[:, :, s:s + step] = o.to(q.dtype)
+    return out
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -257,6 +297,17 @@ def _lib() -> ctypes.CDLL:
         lib.grit_row_min2_batch.restype = _I
         _LIB = lib
     return _LIB
+
+
+def _flash_lib() -> ctypes.CDLL:
+    """The flash-attention library with its C signature declared."""
+    lib = build.load("flash_attention")
+    fn = lib.grit_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _I, _F, _I, _VP]
+        fn.restype = _I
+    return lib
 
 
 def _check(name: str, a, b, valid_b, valid_a, batched: bool):
@@ -486,3 +537,69 @@ def row_min(a: torch.Tensor, b: torch.Tensor,
     slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
     return _launch_row_min(name, a, b, vb, slots, ROWS_PER_SLOT, M, N, 0, 0,
                            (M,))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Blocked attention. q: [B, H, Sq, D]; k/v: [B, H, Sk, D] (H already
+    broadcast over kv groups) -> [B, H, Sq, D] in q's dtype.
+
+    Query row i is aligned to key position ``i + Sk - Sq``; ``window``
+    masks keys with ``q_pos - k_pos >= window``; ``softcap`` is the tanh
+    logit soft-cap; ``scale`` defaults to ``D ** -0.5``.  Any Sq and Sk
+    (the kernel masks the ragged key tile itself).  On the card: float32
+    or bfloat16, all three alike, contiguous, 16-byte aligned, D in
+    ``FLASH_HEAD_DIMS``."""
+    name = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape) \
+            or tuple(q.shape[:2]) != tuple(k.shape[:2]) \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: expected q [B, H, Sq, D] and k, v "
+                         f"[B, H, Sk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    for tname, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} is {t.dtype} on {t.device}, "
+                             f"q is {q.dtype} on {q.device}")
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} is not one of "
+                         f"{FLASH_HEAD_DIMS}")
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be contiguous and "
+                             f"16-byte aligned")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name}: {tname} too large for one launch")
+    if B * H > 65535:
+        raise ValueError(f"{name}: B * H = {B * H} exceeds the grid's 65535")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
+    if scale is None:
+        scale = D ** -0.5
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    if Sk == 0:
+        return out.zero_()            # no live key: the plain version's 0
+    with torch.cuda.device(q.device):
+        err = _flash_lib().grit_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
+            Sq, Sk, D, Sk, Sk - Sq, float(scale), int(bool(causal)),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap),
+            _FLASH_DTYPES[q.dtype], _stream(q.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out

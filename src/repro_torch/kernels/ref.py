@@ -1,10 +1,13 @@
-"""Plain PyTorch oracles for the pairwise-distance kernels.
+"""Plain PyTorch oracles for the pairwise-distance and attention kernels.
 
 The semantic ground truth in the ``aa + bb - 2ab`` form, float32, the
 same form as the oracle of the JAX package (``repro.kernels.ref``), so
-the two packages' oracles can be compared directly.  These materialize
-the whole ``[.., M, N]`` distance tensor and are meant for tests and
+the two packages' oracles can be compared directly; ``mha`` is the
+reference's multi-head attention oracle.  These materialize the whole
+``[.., M, N]`` distance (or logit) tensor and are meant for tests and
 small inputs; the wrappers in ``ops.py`` never call them.
+``masked_logits`` is shared: ``mha`` and the plain flash-attention
+version in ``ops.py`` both mask with it.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+NEG_INF = -1e30
 
 
 def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -122,3 +127,49 @@ def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
     d2_wo = torch.where(cols[None, None, :] == first[:, :, None],
                         torch.inf, d2)
     return mins, d2_wo.min(dim=-1).values, idx
+
+
+def masked_logits(q: torch.Tensor, k: torch.Tensor, *, q_offset: int,
+                  causal: bool, window: Optional[int],
+                  softcap: Optional[float], scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention kernels' logits: q [.., n, D] against k [.., Sk, D]
+    in float32, scaled, then soft-capped (``tanh(x/cap)·cap``), then
+    masked to the finite ``NEG_INF`` where query row i (at key position
+    ``i + q_offset``) may not see a key: ``kpos > qpos`` when causal,
+    ``qpos - kpos >= window`` under a sliding window.  Returns (logits,
+    the [n, Sk] mask of live pairs)."""
+    n, Sk = q.shape[-2], k.shape[-2]
+    logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
+        * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(n, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((n, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return torch.where(mask, logits, NEG_INF), mask
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: Optional[int] = None,
+        softcap: Optional[float] = None,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """Reference multi-head attention.
+
+    q: [B, H, Sq, D], k/v: [B, H, Sk, D] (kv heads already broadcast).
+    ``window``: sliding-window width (keys with q_pos - k_pos >= window
+    masked out); ``softcap``: gemma2-style tanh logit soft capping.
+    Query position i is aligned to key position i + (Sk - Sq) so decode
+    (Sq=1) attends to the full prefix.  Logits and softmax in float32,
+    the probabilities cast to v's dtype before the product with v.
+    """
+    Sq, D = q.shape[2], q.shape[3]
+    logits, _ = masked_logits(
+        q, k, q_offset=k.shape[2] - Sq, causal=causal, window=window,
+        softcap=softcap, scale=D ** -0.5 if scale is None else scale)
+    p = torch.softmax(logits, dim=-1)
+    return p.to(v.dtype) @ v

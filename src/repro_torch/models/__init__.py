@@ -1,0 +1,5 @@
+"""The LM stack: the dense family behind one pure-function API."""
+
+from .config import LMConfig, MoECfg, num_params
+from .lm import (init_params, forward, init_cache, prefill, decode_step,
+                 count_params)

@@ -1,0 +1,144 @@
+"""The LM: init / forward / cache / prefill / decode (the dense family).
+
+Public surface used by the launcher and the tests:
+
+  init_params(cfg, gen, device)         -> params (nested dicts of tensors)
+  count_params(cfg)                     -> exact param count (meta device)
+  forward(cfg, params, batch, cache)    -> (hidden, new cache)
+  init_cache(cfg, batch, max_len, device) -> decode cache
+  prefill(cfg, params, batch, cache)    -> (last logits, cache)
+  decode_step(cfg, params, tokens, cache) -> (logits, cache)
+
+The parameter tree has the reference's layout (``repro.models.lm``):
+``{"embed": [V, d], "blocks": (one dict per block kind of the group
+layout, every leaf stacked on a leading group axis), "ln_f": {...}}``
+plus ``"head": [d, V]`` without tied embeddings, so
+``convert.lm_params_from_numpy`` carries a reference tree across leaf by
+leaf.  Batch dict key: "tokens" [B, S] int.  The training loss waits for
+the training slice (ROADMAP A17).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import layers as L
+from .config import LMConfig
+from .transformer import (group_layout, init_block_cache, num_groups,
+                          stack_forward, stack_params)
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+def init_params(cfg: LMConfig, gen: Optional[torch.Generator], device) -> dict:
+    """Random params drawn from ``gen`` (a generator on ``device``; may be
+    None on the ``meta`` device)."""
+    pd = L.dtype_of(cfg.param_dtype)
+    layout = group_layout(cfg)
+    p = {
+        "embed": L.normal((cfg.vocab_size, cfg.d_model), gen, device, 0.02,
+                          pd),
+        "blocks": stack_params(cfg, gen, device, layout, num_groups(cfg)),
+        "ln_f": L.norm_params(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), device,
+                                 pd)
+    return p
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def count_params(cfg: LMConfig) -> int:
+    """Parameter count of ``init_params`` from shapes alone (nothing is
+    allocated: the tree is built on the ``meta`` device)."""
+    return sum(t.numel() for t in _leaves(init_params(cfg, None, "meta")))
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+
+def embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens].to(L.dtype_of(cfg.dtype))
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def unembed_weights(cfg: LMConfig, params: dict) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def logits_for(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    w = unembed_weights(cfg, params).to(h.dtype)
+    # logit *buffer* in cfg.logit_dtype; softcap math in f32
+    logits = (h.to(torch.float32) @ w.to(torch.float32)).to(
+        L.dtype_of(cfg.logit_dtype)).to(torch.float32)
+    if cfg.logit_softcap is not None:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+# --------------------------------------------------------------------------
+# forward (prefill trunk)
+# --------------------------------------------------------------------------
+
+def forward(cfg: LMConfig, params: dict, batch: dict,
+            cache: Optional[dict] = None):
+    """Trunk forward. Returns (hidden [B, S, d], new_cache)."""
+    x = embed(cfg, params, batch["tokens"])
+    x, new_cache = stack_forward(cfg, params["blocks"], x, group_layout(cfg),
+                                 cache=cache)
+    x = L.apply_norm(cfg, params["ln_f"], x)
+    return x, new_cache
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
+    """Zeroed KV caches, one per block kind of the layout with a leading
+    group axis, and the shared position ``pos`` (a Python int)."""
+    dtype = L.dtype_of(cfg.dtype)
+    G = num_groups(cfg)
+    return {"pos": 0,
+            "slots": tuple(init_block_cache(cfg, kind, batch, max_len, dtype,
+                                            device, lead=(G,))
+                           for kind in group_layout(cfg))}
+
+
+def prefill(cfg: LMConfig, params: dict, batch: dict, cache: dict):
+    """Run the prompt through the trunk, filling the cache (in place).
+
+    Returns (logits of the last position [B, V], cache).
+    """
+    h, cache = forward(cfg, params, batch, cache=cache)
+    logits = logits_for(cfg, params, h[:, -1:])[:, 0]
+    return logits, cache
+
+
+def decode_step(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+                cache: dict):
+    """One decode step. tokens [B] -> (logits [B, V], new cache)."""
+    h, cache = forward(cfg, params, {"tokens": tokens[:, None]}, cache=cache)
+    logits = logits_for(cfg, params, h)[:, 0]
+    return logits, cache

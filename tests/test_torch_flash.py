@@ -1,0 +1,161 @@
+"""Flash attention of the port against the reference.
+
+On the CPU the port's ``kernels.ops.flash_attention`` takes its plain
+version (``flash_attention_plain``); it is held against the reference's
+``repro.kernels.ops.flash_attention`` (the Pallas kernel, in interpret
+mode on the CPU) and against the reference's oracle ``ref.mha``, on the
+shapes of ``tests/test_kernels.py``'s flash sweep plus head_dim 80 and
+single-query decode, within 2e-4 (float32) and 2e-2 (bfloat16), the
+sweep's tolerances.  The port's own ``ref.mha`` is held to the
+reference's.  The CUDA kernel is held to the plain version on the card
+(``gpu`` marker here; ``chip_smoke.py`` phase ``flash`` at the model's
+shapes).
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops, ref as jref
+from repro_torch.kernels import ops as tops, ref as tref
+
+# (b, h, sq, sk, dh, causal, window, softcap)
+SHAPES = [
+    (2, 3, 64, 64, 32, True, None, None),
+    (1, 2, 128, 128, 64, True, 32, None),
+    (1, 2, 100, 100, 64, True, None, 50.0),
+    (2, 1, 1, 96, 32, True, None, None),          # decode
+    (1, 2, 80, 80, 64, False, None, None),        # encoder
+    (1, 1, 64, 192, 32, True, None, None),        # chunked prefix
+    (1, 2, 256, 256, 64, True, 128, 30.0),        # SWA + softcap
+    (1, 2, 96, 96, 80, True, None, None),         # stablelm head_dim
+    (2, 2, 1, 130, 80, True, 64, None),           # decode, head_dim 80
+]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+# the CUDA kernel against its plain version, (rtol, atol): in bfloat16 both
+# round the same float32 function, so one bf16 ulp of the output (<= 2^-7
+# of it) plus the float32 rounding of the sums
+CARD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+
+
+def _inputs(shape, dtype):
+    b, h, sq, sk, dh = shape[:5]
+    rng = np.random.default_rng(zlib.crc32(repr((shape, dtype)).encode()))
+    arrs = [rng.normal(size=(b, h, n, dh)).astype(np.float32)
+            for n in (sq, sk, sk)]
+    jd, td, tol = DTYPES[dtype]
+    return ([jnp.asarray(a, jd) for a in arrs],
+            [torch.from_numpy(a).to(td) for a in arrs], tol)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_matches_the_reference_kernel(shape, dtype):
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(shape, dtype)
+    causal, window, cap = shape[5:]
+    got = tops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                               softcap=cap)
+    assert got.dtype == tq.dtype and tuple(got.shape) == tuple(tq.shape)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_and_mha_match_the_reference_oracle(shape, dtype):
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(shape, dtype)
+    causal, window, cap = shape[5:]
+    want = jref.mha(jq, jk, jv, causal=causal, window=window, softcap=cap)
+    got = tops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                               softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    oracle = tref.mha(tq, tk, tv, causal=causal, window=window, softcap=cap)
+    assert oracle.dtype == tv.dtype
+    np.testing.assert_allclose(_np(oracle), _np(want), rtol=tol, atol=tol)
+
+
+def test_plain_version_is_chunked_over_query_rows(monkeypatch):
+    """Chunking the plain version's query rows changes nothing beyond the
+    float32 rounding of the matrix products."""
+    (_, _, _), (q, k, v), _ = _inputs((1, 2, 100, 100, 64, True, 16, 30.0),
+                                      "float32")
+    whole = tops.flash_attention_plain(q, k, v, window=16, softcap=30.0)
+    monkeypatch.setattr(tops, "PLAIN_CHUNK_ELEMS", 2 * 100 * 7)
+    parts = tops.flash_attention_plain(q, k, v, window=16, softcap=30.0)
+    np.testing.assert_allclose(parts.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_rows_without_a_live_key_are_zero():
+    """Sq > Sk under the causal mask leaves the first Sq - Sk rows with no
+    live key: the kernel and its plain version write 0 there."""
+    (_, _, _), (q, k, v), _ = _inputs((1, 1, 9, 4, 16, True, None, None),
+                                      "float32")
+    out = tops.flash_attention(q, k, v)
+    assert torch.all(out[:, :, :5] == 0)
+    assert torch.all(out[:, :, 5:].abs().sum(-1) > 0)
+    empty = tops.flash_attention(q, k[:, :, :0], v[:, :, :0])
+    assert torch.all(empty == 0)
+
+
+def test_cpu_tensors_never_launch_and_bad_shapes_raise():
+    (_, _, _), (q, k, v), _ = _inputs(SHAPES[0], "float32")
+    before = dict(tops.LAUNCHES)
+    assert "flash_attention" in before
+    tops.flash_attention(q, k, v)
+    assert tops.LAUNCHES == before
+    with pytest.raises(ValueError):
+        tops.flash_attention(q[0], k[0], v[0])
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k, v[:, :, :10])
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, k[..., :16], v[..., :16])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_kernel_matches_its_plain_version_on_the_card():
+    """The hand-written kernel against its plain version on a CUDA device
+    (skipped where there is none), float32 and bfloat16, with a window,
+    a soft-cap and ragged tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    for shape in ((1, 2, 100, 100, 64, True, 32, 30.0),
+                  (2, 3, 1, 130, 80, True, None, None),
+                  (1, 2, 70, 200, 128, False, None, None)):
+        for dtype in DTYPES:
+            _, (q, k, v), _ = _inputs(shape, dtype)
+            rtol, atol = CARD_TOL[dtype]
+            causal, window, cap = shape[5:]
+            before = tops.LAUNCHES["flash_attention"]
+            got = tops.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                       causal=causal, window=window,
+                                       softcap=cap)
+            assert tops.LAUNCHES["flash_attention"] == before + 1
+            want = tops.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, softcap=cap)
+            np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=rtol,
+                                       atol=atol)
+
+
+def test_each_source_gets_its_own_flags_in_its_hash():
+    """``-fmad=false`` (exact distance terms) applies to the distance
+    kernels only; the library name hashes the source's own flags."""
+    from repro_torch.kernels import build
+    assert build.sources() == ["flash_attention", "pairwise"]
+    assert "-fmad=false" in build.flags("pairwise")
+    assert "-fmad=false" not in build.flags("flash_attention")
+    for name in build.sources():
+        assert "arch=compute_90a,code=sm_90a" in build.flags(name)
+        _, lib = build._target(name)
+        assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
