@@ -44,11 +44,16 @@ result line) as soon as a phase fails:
            within 2e-4; bfloat16 within 2^-7·|want| + 1e-4 elementwise,
            one bf16 ulp of the output; both with a mean error under 1e-3
            of the mean |want|) at the LM path's shapes
-           (qwen2-1.5b prefill after the GQA broadcast, 8,192-token
-           prefill, gemma2's windowed soft-capped layer) and at ragged,
-           non-causal, decode, chunked-prefix and small-head shapes;
-           CUDA-event times beside the bound and, where one call computes
-           the same function, ``F.scaled_dot_product_attention``
+           (qwen2-1.5b prefill with its 2 KV heads read in place and
+           after a broadcast to 12, 8,192-token prefill, gemma2's
+           windowed soft-capped layer) and at ragged, non-causal, decode,
+           chunked-prefix and small-head shapes; each case's route
+           (``wgmma`` for bf16, ``scalar`` for float32) as the library
+           reports it; CUDA-event times beside the bound and, where one
+           call computes the same function,
+           ``F.scaled_dot_product_attention`` (``vs_library`` = ms over
+           its ms); the bf16 head-dim-128 kernel's registers and spills
+           as ptxas reported them and its HGMMA count in the SASS
   lm       qwen2-1.5b at full width (float32 params from a seeded
            generator, bfloat16 activations) served through
            ``launch.serve.serve_requests`` with the flash kernel: (a) the
@@ -57,7 +62,10 @@ result line) as soon as a phase fails:
            of 8,192; 28 flash launches per prefill; then one prefill of
            (b) again with the plain attention path (last-position logits
            within 3e-2 of the largest logit in bfloat16, 1e-3 in float32
-           at 4 layers)
+           at 4 layers), the flash prefill making no broadcast copy of
+           the KV heads; last, (b)'s two batches prefilled again warm, three
+           timed calls and one under ``torch.profiler`` (device ms of all
+           kernels and of the flash kernel, the device's idle share)
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
@@ -78,6 +86,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -887,18 +897,23 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
 # flash attention vs its plain version
 # --------------------------------------------------------------------------
 
-# (case, B, H, Sq, Sk, D, dtype, causal, window, softcap)
+# (case, B, H, H_kv, Sq, Sk, D, dtype, causal, window, softcap); the first
+# is the lm path's prefill call (qwen2-1.5b: 12 query heads, 2 KV heads)
 FLASH_CASES = [
-    ("qwen2_prefill", 4, 12, 2048, 2048, 128, "bfloat16", True, None, None),
-    ("prefill_8192", 1, 12, 8192, 8192, 128, "bfloat16", True, None, None),
-    ("gemma2_local", 1, 32, 8192, 8192, 128, "bfloat16", True, 4096, 50.0),
-    ("noncausal", 2, 8, 1500, 1500, 64, "float32", False, None, None),
-    ("decode", 4, 12, 1, 4100, 128, "bfloat16", True, None, None),
-    ("chunked_prefix", 2, 12, 64, 192, 128, "bfloat16", True, None, None),
-    ("unaligned", 2, 12, 100, 100, 128, "float32", True, None, None),
-    ("head_dim_16", 2, 8, 1000, 1000, 16, "float32", True, 256, None),
-    ("head_dim_32", 2, 8, 1000, 1000, 32, "bfloat16", True, None, 30.0),
-    ("head_dim_80", 1, 32, 2048, 2048, 80, "bfloat16", True, None, None),
+    ("qwen2_prefill_gqa", 4, 12, 2, 2048, 2048, 128, "bfloat16", True, None,
+     None),
+    ("qwen2_prefill", 4, 12, 12, 2048, 2048, 128, "bfloat16", True, None,
+     None),
+    ("prefill_8192", 1, 12, 12, 8192, 8192, 128, "bfloat16", True, None, None),
+    ("gemma2_local", 1, 32, 32, 8192, 8192, 128, "bfloat16", True, 4096,
+     50.0),
+    ("noncausal", 2, 8, 8, 1500, 1500, 64, "float32", False, None, None),
+    ("decode", 4, 12, 12, 1, 4100, 128, "bfloat16", True, None, None),
+    ("chunked_prefix", 2, 12, 12, 64, 192, 128, "bfloat16", True, None, None),
+    ("unaligned", 2, 12, 12, 100, 100, 128, "float32", True, None, None),
+    ("head_dim_16", 2, 8, 8, 1000, 1000, 16, "float32", True, 256, None),
+    ("head_dim_32", 2, 8, 8, 1000, 1000, 32, "bfloat16", True, None, 30.0),
+    ("head_dim_80", 1, 32, 32, 2048, 2048, 80, "bfloat16", True, None, None),
 ]
 # the kernel against its plain version, elementwise |got - want| <=
 # rtol·|want| + atol, and mean |got - want| <= FLASH_MEAN_REL·mean |want|.
@@ -925,6 +940,11 @@ def sdpa_call(q, k, v, causal, window, softcap):
     if softcap is not None:
         return None
     Sq, Sk = q.shape[2], k.shape[2]
+    if k.shape[1] != q.shape[1]:
+        if not (causal and window is None and Sq == Sk):
+            return None
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
     if causal and window is None and Sq == Sk:
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
     qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
@@ -939,17 +959,72 @@ def sdpa_call(q, k, v, causal, window, softcap):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def flash_build_report():
+    """The bf16 head-dim-128 kernel (``flash_wgmma_kernel<128>``) as built:
+    registers, stack and spill bytes from the ptxas report that the build
+    keeps beside the library, and its count of HGMMA (tensor-core)
+    instructions in the SASS, or of ``wgmma.mma_async`` in the PTX where
+    the toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels import build
+    tag = "flash_wgmma_kernelILi128E"
+    lines = build.log_path("flash_attention").read_text().splitlines()
+    rep = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            for nxt in lines[i + 1:i + 4]:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    rep.update(stack_bytes=int(m.group(1)),
+                               spill_store_bytes=int(m.group(2)),
+                               spill_load_bytes=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    rep["registers"] = int(m.group(1))
+    lib = build._target("flash_attention")[1]
+    cuda_bin = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin")
+    cuobjdump = shutil.which("cuobjdump") or shutil.which(
+        "cuobjdump", path=cuda_bin)
+    if cuobjdump:
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        body = [f for f in re.split(r"\n\s*Function : ", sass)
+                if f.split("\n", 1)[0].find(tag) >= 0]
+        rep.update(tensor_instr="HGMMA in SASS",
+                   tensor_instr_count=sum(f.count("HGMMA") for f in body))
+    else:
+        ptx = lib.with_suffix(".ptx")
+        subprocess.run([shutil.which("nvcc") or os.path.join(cuda_bin, "nvcc"),
+                        *build.flags("flash_attention")[:4], "-ptx", "-o",
+                        str(ptx), str(build.CSRC / "flash_attention.cu")],
+                       capture_output=True, timeout=300, check=True)
+        rep.update(tensor_instr="wgmma.mma_async in PTX",
+                   tensor_instr_count=ptx.read_text().count("wgmma.mma_async"))
+    require({"registers", "spill_store_bytes"} <= rep.keys(),
+            f"no ptxas report of {tag} in the build log")
+    require(rep["spill_store_bytes"] == 0 and rep["spill_load_bytes"] == 0,
+            f"the bf16 flash kernel spills registers: {rep}")
+    require(rep["tensor_instr_count"] > 0,
+            f"the bf16 flash kernel has no tensor-core instruction: {rep}")
+    return rep
+
+
 def flash_phase(dev, seed):
     from repro_torch.kernels import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed + 40_000)
     rows = []
-    for name, B, H, Sq, Sk, D, dt, causal, window, cap in FLASH_CASES:
+    for name, B, H, Hkv, Sq, Sk, D, dt, causal, window, cap in FLASH_CASES:
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn((B, H, n, D), generator=gen, device=dev)
-                   .to(dtype) for n in (Sq, Sk, Sk))
+        q, k, v = (torch.randn((B, h, n, D), generator=gen, device=dev)
+                   .to(dtype) for h, n in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
         kw = dict(causal=causal, window=window, softcap=cap)
+        route = ops.flash_route(dtype, D)
+        require(route == ("wgmma" if dt == "bfloat16" else "scalar"),
+                f"flash_attention {name}: route {route} for {dt}")
         got = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ops.flash_attention_plain(q, k, v, **kw)
@@ -968,21 +1043,24 @@ def flash_phase(dev, seed):
                 f"{mean_rel} of mean |want|")
         del got, want, diff, mag
         esize = q.element_size()
-        nbytes = esize * 2.0 * B * H * (Sq + Sk) * D
+        nbytes = esize * 2.0 * B * (H * Sq + Hkv * Sk) * D
         nops = 4.0 * D * B * H * live_pairs(Sq, Sk, causal, window)
         peak = PEAK_BF16_OPS_S if dt == "bfloat16" else PEAK_F32_OPS_S
         tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak * 1e3
         lib = sdpa_call(q, k, v, causal, window, cap)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        library_ms = None if lib is None else cuda_ms(lib)
         rows.append(dict(
-            case=name, shape=[B, H, Sq, Sk, D], dtype=dt, causal=causal,
-            window=window, softcap=cap, max_abs_err=err,
-            bound_share=worst, mean_rel_err=mean_rel,
+            case=name, shape=[B, H, Sq, Sk, D], kv_heads=Hkv, dtype=dt,
+            causal=causal, window=window, softcap=cap, route=route,
+            max_abs_err=err, bound_share=worst, mean_rel_err=mean_rel,
             tolerance=dict(rtol=rtol, atol=atol, mean_rel=FLASH_MEAN_REL),
-            ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            ms=ms,
             plain_ms=cuda_ms(lambda: ops.flash_attention_plain(q, k, v, **kw),
                              reps=2, warmup=1),
             bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
-            library_ms=None if lib is None else cuda_ms(lib)))
+            library_ms=library_ms,
+            vs_library=None if library_ms is None else ms / library_ms))
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -1047,13 +1125,30 @@ def _serve_part(cfg, params, reqs, slots, max_len, dev):
 def _compare_prefill(cfg, params, toks, dev):
     """Last-position logits of one prefill with the flash kernel and with
     the plain attention path: (max |diff| / max |logit|, greedy-token
-    agreement)."""
-    from repro_torch.models import init_cache, prefill
+    agreement).  The flash prefill must make no broadcast copy of the KV
+    heads (the kernel reads them in place); the plain one makes two per
+    layer."""
+    from repro_torch.models import init_cache, layers, prefill
     out = {}
+    real_copy = layers._broadcast_kv
     for flash in (True, False):
         c = cfg.with_overrides(use_flash_kernel=flash)
         cache = init_cache(c, toks.shape[0], toks.shape[1] + LM_NEW, dev)
-        out[flash], _ = prefill(c, params, {"tokens": toks}, cache)
+        copies = []
+
+        def counted(k, group):
+            copies.append(group)
+            return real_copy(k, group)
+
+        layers._broadcast_kv = counted
+        try:
+            out[flash], _ = prefill(c, params, {"tokens": toks}, cache)
+        finally:
+            layers._broadcast_kv = real_copy
+        want = 0 if flash else 2 * c.num_layers
+        require(len(copies) == want,
+                f"lm: {len(copies)} KV broadcast copies in a prefill with "
+                f"use_flash_kernel={flash}, expected {want}")
         del cache
         torch.cuda.empty_cache()
     f, p = out[True], out[False]
@@ -1061,6 +1156,47 @@ def _compare_prefill(cfg, params, toks, dev):
     rel = float((f - p).abs().max().item() / p.abs().max().item())
     agree = float((f.argmax(-1) == p.argmax(-1)).float().mean().item())
     return rel, agree
+
+
+def _warm_prefill(cfg, params, toks, dev, reps=3):
+    """Prefill of ``toks`` at a shape already served: host ms of ``reps``
+    synchronised calls, then one call under ``torch.profiler``: the device
+    ms of every kernel and of the flash kernel, and the share of that
+    call's wall time (profiler overhead included) with no kernel running."""
+    from repro_torch.models import init_cache, prefill
+
+    def once():
+        cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(cfg, params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    host_ms = [once() for _ in range(reps)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prefill(cfg, params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    del cache
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Command Buffer" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    flash = [e for e in kern if "flash_wgmma_kernel" in e.name]
+    require(len(flash) == cfg.num_layers,
+            f"lm: the profiled prefill shows {len(flash)} flash kernels")
+    return dict(batch=list(toks.shape), host_ms=host_ms,
+                profiled_wall_ms=wall, kernel_ms=busy,
+                flash_kernel_ms=sum(e.time_range.elapsed_us()
+                                    for e in flash) / 1e3,
+                flash_kernels=len(flash),
+                idle_share=max(0.0, 1.0 - busy / wall))
 
 
 def lm_phase(dev, seed):
@@ -1101,13 +1237,17 @@ def lm_phase(dev, seed):
     parts["long_8192"], lc = _serve_part(cfg, params, req_8k, 1,
                                          8192 + LM_NEW, dev)
     launches = {k: la[k] + lb[k] + lc[k] for k in la}
-
-    # the batch of (b) again: flash against the plain attention path, in
-    # bfloat16 at full depth and in float32 at 4 layers
+    # the batch of (b), left-padded to its bucket as the serve loop pads it
     toks = np.zeros((4, 2048), np.int64)
     for i, r in enumerate(long_reqs):
         toks[i, 2048 - len(r.prompt):] = r.prompt
     toks = torch.from_numpy(toks).to(dev)
+    warm = [_warm_prefill(cfg, params, toks, dev),
+            _warm_prefill(cfg, params,
+                          torch.tensor([req_8k[0].prompt], device=dev), dev)]
+
+    # the batch of (b) again: flash against the plain attention path, in
+    # bfloat16 at full depth and in float32 at 4 layers
     rel_bf16, agree_bf16 = _compare_prefill(cfg, params, toks, dev)
     require(rel_bf16 <= 3e-2, f"lm: flash and plain prefill logits differ "
             f"by {rel_bf16} of the largest logit (bfloat16)")
@@ -1123,7 +1263,7 @@ def lm_phase(dev, seed):
         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
         vocab=cfg.vocab_size, params=n_params, param_dtype=cfg.param_dtype,
         dtype=cfg.dtype, init_s=init_s, params_bytes=params_bytes,
-        parts=parts,
+        parts=parts, warm_prefill=warm,
         flash_vs_plain=dict(
             bf16_rel=rel_bf16, bf16_tol=3e-2, bf16_greedy_agree=agree_bf16,
             f32_4layers_rel=rel_f32, f32_tol=1e-3,
@@ -1299,8 +1439,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- flash attention ------------------------------------------------
+    flash_build = flash_build_report()
     flash_rows = flash_phase(dev, args.seed)
-    emit("flash", cases=flash_rows, script_s=time.perf_counter() - t_script)
+    emit("flash", cases=flash_rows, wgmma_build=flash_build,
+         script_s=time.perf_counter() - t_script)
     flash_compare = ops.LAUNCHES["flash_attention"]
     torch.cuda.empty_cache()
 
@@ -1330,9 +1472,10 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None)
                for r in rows + band_rows_]
-    fr = flash_rows[0]                  # the slice's prefill shape
+    fr = flash_rows[0]                  # the lm path's prefill call
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        kernel_route=fr["route"], kv_heads=fr["kv_heads"],
         replaces=REPLACES["flash_attention"],
         launches=sum(by_path["flash_attention"].values()),
         launches_by_path=by_path["flash_attention"],

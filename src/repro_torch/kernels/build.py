@@ -5,12 +5,16 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 loaded with ``ctypes``.  Every source gets ``NVCC_FLAGS`` and its own
 entry of ``SOURCE_FLAGS``: the distance kernels are built with
 ``-fmad=false`` (each squared term rounded as in their plain versions),
-flash attention without it (its dot products are fused multiply-adds).
-The hash is of the source text and the source's flags, so an edited
-source or flag never meets a stale library.  Nothing is built or
-loaded when this module is imported: :func:`load` does both at first
-use, and :func:`build_all` starts one compiler per source, all at once,
-for callers that want every kernel ready up front.
+flash attention without it (its dot products are fused multiply-adds)
+and with ``-Xptxas -v``; the compiler's output, with ptxas's report of
+registers and spills per kernel, is kept beside each library as
+``lib<name>-<hash>.log``.  The hash is of the source text, the text of
+every local header it includes (``#include "x.cuh"``, followed
+recursively) and the source's flags, so an edited source, header or flag
+never meets a stale library.  Nothing is built or loaded when this
+module is imported: :func:`load` does both at first use, and
+:func:`build_all` starts one compiler per source, all at once, for
+callers that want every kernel ready up front.
 
 The build directory is ``build/repro_torch`` at the root of the
 checkout (``REPRO_TORCH_BUILD_DIR`` overrides it for an installed
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,7 +35,11 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"pairwise": ("-fmad=false",)}
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "pairwise": ("-fmad=false",),
+    "flash_attention": ("-Xptxas", "-v"),
+}
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -65,13 +74,35 @@ def flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
+def headers(src: Path) -> List[Path]:
+    """The local headers ``src`` includes, directly or through another
+    header, in the order first met (system headers are not followed)."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _LOCAL_INCLUDE.findall(cur.read_text()):
+            path = (cur.parent / inc).resolve()
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise KeyError(f"no kernel source {src}")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:12]
-    return src, build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for path in headers(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def log_path(name: str) -> Path:
+    """The compiler's output of the current build of ``csrc/<name>.cu``."""
+    return _target(name)[1].with_suffix(".log")
 
 
 def _start(name: str):
@@ -95,6 +126,7 @@ def _finish(name: str, proc, tmp, lib) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    lib.with_suffix(".log").write_text(out)
     os.replace(tmp, lib)          # atomic: a reader never sees half a file
     return lib
 

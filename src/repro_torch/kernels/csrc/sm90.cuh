@@ -1,0 +1,181 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
+// TMA tensor loads, wgmma shared-memory descriptors, the wgmma shapes the
+// flash-attention kernel issues and two special-function-unit intrinsics.
+// Everything is inline PTX; nothing here allocates or launches.
+#pragma once
+
+#include <cuda.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive once and announce `bytes` of TMA traffic that completes the phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.  A wait that
+// never ends (a lost TMA transaction, a miscounted arrival) traps, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_addr(bar);
+    uint32_t done = 0;
+    for (uint32_t tries = 0;; ++tries) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) return;
+        if (tries == (1u << 26)) __trap();
+    }
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// One box of a 3-d tensor map into shared memory; completion is reported to
+// `bar` as transaction bytes.  Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// ---- wgmma --------------------------------------------------------------------
+
+// Shared-memory matrix descriptors for tiles written by TMA with 128-byte
+// swizzle: rows of 128 bytes, 8-row groups `sbo` bytes apart, `lbo` the
+// byte stride between 64-element blocks of an MN-major operand (unused by
+// K-major operands).  Tiles start 1024-byte aligned; a K-major operand's
+// 16-element slices inside a row are reached by adding 32, 64, 96 bytes to
+// the start address.
+// The descriptor of a 128-byte-swizzle tile at shared address `addr`.
+__device__ __forceinline__ uint64_t desc_sw128_at(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    uint64_t d = 0;
+    d |= (uint64_t)((addr & 0x3FFFF) >> 4);
+    d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+    d |= (uint64_t)1 << 62;                  // layout: 128-byte swizzle
+    return d;
+}
+
+// `x`, hidden from the optimiser, so that values derived from it are
+// computed where they are used and not hoisted out of a loop into
+// registers that the accumulators need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+    uint32_t y;
+    asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+    return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define SM90_R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                   "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 operands from shared
+// memory (both K-major), f32 accumulator: 64 registers a thread.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                    uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24),
+          SM90_R8(32), SM90_R8(40), SM90_R8(48), SM90_R8(56)
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A as bf16 pairs in registers (the
+// accumulator layout of a 64 x 16 slice), B from shared memory MN-major
+// (transposed), f32 accumulator: 32 registers a thread.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers as above, B
+// MN-major in two 64-column blocks `lbo` bytes apart (the descriptor's).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24),
+          SM90_R8(32), SM90_R8(40), SM90_R8(48), SM90_R8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef SM90_R8
+
+// 2^x on the special-function unit (flushes denormal results to 0).
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// 1 / x on the special-function unit.
+__device__ __forceinline__ float rcp(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+}  // namespace sm90

@@ -12,7 +12,8 @@ Seven kernel functions, same signatures and contracts as
 * ``row_min2_batch(a, b, valid_b)``  -> ([B, M] f32 min, [B, M] f32
   runner-up, [B, M] int32 first argmin)
 * ``flash_attention(q, k, v, causal, window, softcap, scale)`` -> [B, H,
-  Sq, D] in q's dtype (blocked online-softmax attention, right-aligned)
+  Sq, D] in q's dtype (blocked online-softmax attention, right-aligned;
+  k / v may have fewer heads than q, read through the GQA map)
 
 and the two flat ragged gathers of the resident serving plane,
 ``pairwise_d2_flat`` / ``pairwise_d2_flat_res``, which are plain
@@ -244,7 +245,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of :func:`flash_attention`: the kernel's function in
     float32 (logits, softmax and the product with v; p stays float32),
     one softmax over all keys per chunk of query rows, the output cast
-    to q's dtype.  A row with no live key gives 0, as in the kernel."""
+    to q's dtype.  A row with no live key gives 0, as in the kernel.
+    k / v with fewer heads than q are broadcast here (head h reads KV
+    head h // (H // H_kv))."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if scale is None:
@@ -254,6 +257,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
+    if k.shape[1] != H:
+        kf = kf.repeat_interleave(H // k.shape[1], dim=1)
+        vf = vf.repeat_interleave(H // k.shape[1], dim=1)
     step = _chunk(B * H * Sk, Sq)
     for s in range(0, Sq, step):
         logits, mask = ref.masked_logits(
@@ -304,10 +310,26 @@ def _flash_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.grit_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _I, _F, _I, _VP]
+        fn.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _I, _I, _F, _I, _VP]
         fn.restype = _I
+        lib.grit_flash_route.argtypes = [_I, _I]
+        lib.grit_flash_route.restype = _I
     return lib
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route the built flash kernel takes for this input type and head
+    dim, as its library reports it: ``"wgmma"`` (bf16, tensor cores, TMA)
+    or ``"scalar"`` (float32, CUDA cores: TF32 would miss the reference's
+    tolerance).  Builds and loads the library; raises for what the kernel
+    does not take."""
+    code = _flash_lib().grit_flash_route(_FLASH_DTYPES.get(dtype, -1),
+                                         int(head_dim))
+    if code < 0:
+        raise ValueError(f"flash_attention: no kernel route for {dtype}, "
+                         f"head_dim {head_dim}")
+    return ("scalar", "wgmma")[code]
 
 
 def _check(name: str, a, b, valid_b, valid_a, batched: bool):
@@ -543,22 +565,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Blocked attention. q: [B, H, Sq, D]; k/v: [B, H, Sk, D] (H already
-    broadcast over kv groups) -> [B, H, Sq, D] in q's dtype.
+    """Blocked attention. q: [B, H, Sq, D]; k/v: [B, H_kv, Sk, D] with
+    ``H % H_kv == 0`` (query head h reads KV head h // (H // H_kv), in
+    place on the card) -> [B, H, Sq, D] in q's dtype.
 
     Query row i is aligned to key position ``i + Sk - Sq``; ``window``
     masks keys with ``q_pos - k_pos >= window``; ``softcap`` is the tanh
     logit soft-cap; ``scale`` defaults to ``D ** -0.5``.  Any Sq and Sk
     (the kernel masks the ragged key tile itself).  On the card: float32
     or bfloat16, all three alike, contiguous, 16-byte aligned, D in
-    ``FLASH_HEAD_DIMS``."""
+    ``FLASH_HEAD_DIMS``; :func:`flash_route` names the route each type
+    takes."""
     name = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape) \
-            or tuple(q.shape[:2]) != tuple(k.shape[:2]) \
-            or q.shape[3] != k.shape[3]:
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
+            or k.shape[1] < 1 or q.shape[1] % k.shape[1]:
         raise ValueError(f"{name}: expected q [B, H, Sq, D] and k, v "
-                         f"[B, H, Sk, D], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+                         f"[B, H_kv, Sk, D] with H % H_kv == 0, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
@@ -595,8 +620,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()            # no live key: the plain version's 0
     with torch.cuda.device(q.device):
         err = _flash_lib().grit_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
-            Sq, Sk, D, Sk, Sk - Sq, float(scale), int(bool(causal)),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            k.shape[1], Sq, Sk, D, Sk, Sk - Sq, float(scale),
+            int(bool(causal)),
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap),
             _FLASH_DTYPES[q.dtype], _stream(q.device))

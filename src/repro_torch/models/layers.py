@@ -264,7 +264,8 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
     """Dispatch across attention paths. q/k/v: [B, H, S, D].
 
     ``use_flash`` takes ``kernels.ops.flash_attention`` whatever ``impl``
-    says (right-aligned queries only; it keeps its logits in float32)."""
+    says (right-aligned queries only; it keeps its logits in float32); it
+    also takes k / v with fewer heads than q (GQA, read in place)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if scale is None:
@@ -402,23 +403,25 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
             out = _masked_decode_attn(cfg, q, kk, vv, valid,
                                       softcap=cfg.attn_softcap)
         else:
-            kk = _broadcast_kv(k, cfg.q_per_kv)
-            vv = _broadcast_kv(v, cfg.q_per_kv)
-            out = attention(q, kk, vv, causal=True, window=window,
-                            softcap=cfg.attn_softcap, impl=cfg.attn_impl,
-                            chunk=cfg.attn_chunk,
-                            logit_dtype=cfg.logit_dtype,
-                            use_flash=cfg.use_flash_kernel)
+            out = _prefill_attn(cfg, q, k, v, window)
     else:
-        kk = _broadcast_kv(k, cfg.q_per_kv)
-        vv = _broadcast_kv(v, cfg.q_per_kv)
-        out = attention(q, kk, vv, causal=True, window=window,
-                        softcap=cfg.attn_softcap, impl=cfg.attn_impl,
-                        chunk=cfg.attn_chunk, logit_dtype=cfg.logit_dtype,
-                        use_flash=cfg.use_flash_kernel)
+        out = _prefill_attn(cfg, q, k, v, window)
 
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"].to(out.dtype), new_cache
+
+
+def _prefill_attn(cfg: LMConfig, q, k, v, window):
+    """Causal self-attention of a prompt: the flash kernel reads the
+    un-broadcast k / v through its GQA map; the other paths take them
+    broadcast to every query head."""
+    if not cfg.use_flash_kernel:
+        k = _broadcast_kv(k, cfg.q_per_kv)
+        v = _broadcast_kv(v, cfg.q_per_kv)
+    return attention(q, k, v, causal=True, window=window,
+                     softcap=cfg.attn_softcap, impl=cfg.attn_impl,
+                     chunk=cfg.attn_chunk, logit_dtype=cfg.logit_dtype,
+                     use_flash=cfg.use_flash_kernel)
 
 
 def _masked_decode_attn(cfg, q, k, v, valid, softcap=None):

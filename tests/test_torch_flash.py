@@ -7,9 +7,11 @@ mode on the CPU) and against the reference's oracle ``ref.mha``, on the
 shapes of ``tests/test_kernels.py``'s flash sweep plus head_dim 80 and
 single-query decode, within 2e-4 (float32) and 2e-2 (bfloat16), the
 sweep's tolerances.  The port's own ``ref.mha`` is held to the
-reference's.  The CUDA kernel is held to the plain version on the card
-(``gpu`` marker here; ``chip_smoke.py`` phase ``flash`` at the model's
-shapes).
+reference's.  k / v with fewer heads than q (GQA) give what their
+broadcast gives.  The bf16 kernel's product of P with V is emulated here
+to show why it splits P into two bf16 terms.  The CUDA kernel is held to
+the plain version on the card (``gpu`` marker here; ``chip_smoke.py``
+phase ``flash`` at the model's shapes).
 """
 
 import zlib
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops, ref as jref
 from repro_torch.kernels import ops as tops, ref as tref
+from repro_torch.models.layers import _broadcast_kv
 
 # (b, h, sq, sk, dh, causal, window, softcap)
 SHAPES = [
@@ -40,6 +43,10 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
 # round the same float32 function, so one bf16 ulp of the output (<= 2^-7
 # of it) plus the float32 rounding of the sums
 CARD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-4)}
+# chip_smoke.py's mean bound: mean |got - want| <= FLASH_MEAN_REL * mean |want|
+FLASH_MEAN_REL = 1e-3
+# (H, H_kv): qwen2-1.5b's 12 / 2, a group of 2, multi-query
+GQA_HEADS = [(12, 2), (8, 4), (6, 1)]
 
 
 def _inputs(shape, dtype):
@@ -123,18 +130,86 @@ def test_cpu_tensors_never_launch_and_bad_shapes_raise():
         tops.flash_attention(q, k[..., :16], v[..., :16])
 
 
+@pytest.mark.parametrize("form, passes", [("two_terms", True),
+                                         ("one_rounding", False)])
+def test_pv_product_needs_p_as_two_bf16_terms(form, passes):
+    """The bf16 kernel multiplies P into V on bf16 tensor cores.  Emulated
+    in float32 on the CPU at [1,4,1024,128] causal: with P as two bf16
+    terms (P_hi = bf16(P), P_lo = bf16(P - P_hi), both into one float32
+    sum) the output stays within the card tolerance of the float32-p
+    function that the plain version computes; with P rounded to bf16 once
+    it does not (about 40 % of the outputs move by an ulp, some by many)."""
+    rng = np.random.default_rng(zlib.crc32(b"pv-product"))
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 1024, 128))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    logits, _ = tref.masked_logits(q, k, q_offset=0, causal=True,
+                                   window=None, softcap=None,
+                                   scale=128 ** -0.5)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    vf = v.to(torch.float32)
+    want = ((p @ vf) / l).to(torch.bfloat16).to(torch.float32)
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    o = hi @ vf
+    if form == "two_terms":
+        o = o + (p - hi).to(torch.bfloat16).to(torch.float32) @ vf
+    got = (o / l).to(torch.bfloat16).to(torch.float32)
+    rtol, atol = CARD_TOL["bfloat16"]
+    diff = (got - want).abs()
+    worst = float((diff / (rtol * want.abs() + atol)).max())
+    mean_rel = float(diff.mean() / want.abs().mean())
+    assert (worst <= 1.0 and mean_rel <= FLASH_MEAN_REL) == passes, \
+        (worst, mean_rel)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("heads", GQA_HEADS, ids=lambda h: f"{h[0]}q{h[1]}kv")
+def test_kv_heads_read_in_place_equal_their_broadcast(heads, dtype):
+    """k / v with H_kv < H heads give, in the plain version and the
+    wrapper, exactly what the model's broadcast copy gives, and match the
+    reference kernel run on the broadcast copy."""
+    H, Hkv = heads
+    rng = np.random.default_rng(zlib.crc32(repr((heads, dtype)).encode()))
+    q, k, v = (rng.normal(size=(2, h, n, 32)).astype(np.float32)
+               for h, n in ((H, 40), (Hkv, 56), (Hkv, 56)))
+    jd, td, tol = DTYPES[dtype]
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    kb, vb = (_broadcast_kv(t, H // Hkv) for t in (tk, tv))
+    kw = dict(causal=True, window=24, softcap=30.0)
+    for fn in (tops.flash_attention_plain, tops.flash_attention):
+        got = fn(tq, tk, tv, **kw)
+        assert torch.equal(got, fn(tq, kb, vb, **kw))
+    want = jops.flash_attention(jnp.asarray(q, jd),
+                                jnp.asarray(_np(kb), jd),
+                                jnp.asarray(_np(vb), jd), **kw)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_kv_heads_that_do_not_divide_the_query_heads_raise():
+    q = torch.zeros((1, 12, 8, 16))
+    for kv_heads in (5, 24, 0):
+        k = torch.zeros((1, kv_heads, 8, 16))
+        with pytest.raises(ValueError):
+            tops.flash_attention(q, k, k)
+
+
 @pytest.mark.gpu
 def test_cuda_flash_kernel_matches_its_plain_version_on_the_card():
     """The hand-written kernel against its plain version on a CUDA device
     (skipped where there is none), float32 and bfloat16, with a window,
-    a soft-cap and ragged tiles."""
+    a soft-cap, ragged tiles, and k / v with fewer heads than q at head
+    dim 80."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     for shape in ((1, 2, 100, 100, 64, True, 32, 30.0),
                   (2, 3, 1, 130, 80, True, None, None),
-                  (1, 2, 70, 200, 128, False, None, None)):
+                  (1, 2, 70, 200, 128, False, None, None),
+                  (2, 12, 200, 200, 80, True, None, None)):
         for dtype in DTYPES:
             _, (q, k, v), _ = _inputs(shape, dtype)
+            if shape[1] == 12:          # 2 KV heads for 12 query heads
+                k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
             rtol, atol = CARD_TOL[dtype]
             causal, window, cap = shape[5:]
             before = tops.LAUNCHES["flash_attention"]
@@ -159,3 +234,24 @@ def test_each_source_gets_its_own_flags_in_its_hash():
         assert "arch=compute_90a,code=sm_90a" in build.flags(name)
         _, lib = build._target(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
+
+
+def test_an_edited_header_changes_the_library_name(tmp_path, monkeypatch):
+    """The library name hashes every local header a source includes,
+    directly or through another header, so an edited header never meets a
+    stale library."""
+    from repro_torch.kernels import build
+    assert [p.name for p in build.headers(build.CSRC / "flash_attention.cu")] \
+        == ["sm90.cuh"]
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.headers(tmp_path / "k.cu")] == ["a.cuh",
+                                                                  "b.cuh"]
+    first = build._target("k")[1].name
+    assert build._target("k")[1].name == first
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    second = build._target("k")[1].name
+    assert second != first and second.startswith("libk-")
+    assert build.log_path("k") == build._target("k")[1].with_suffix(".log")

@@ -192,6 +192,40 @@ def test_prefill_and_decode_match_the_reference(arch, dtype, flash):
         assert err <= bound, f"step {step}: max abs {err} > {bound}"
 
 
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+def test_flash_prefill_reads_the_kv_heads_in_place(flash, monkeypatch):
+    """With the flash kernel a GQA prefill hands it k / v with the model's
+    KV heads and makes no broadcast copy; the plain paths broadcast them."""
+    cfg = tget_config("qwen2-1.5b", smoke=True).with_overrides(
+        dtype="float32", use_flash_kernel=flash)
+    assert cfg.q_per_kv > 1
+    copies, kv_heads = [], []
+    real_copy, real_flash = TL._broadcast_kv, TL.ops.flash_attention
+
+    def copy(k, group):
+        copies.append(group)
+        return real_copy(k, group)
+
+    def flash_call(q, k, v, **kw):
+        kv_heads.append(k.shape[1])
+        return real_flash(q, k, v, **kw)
+
+    monkeypatch.setattr(TL, "_broadcast_kv", copy)
+    monkeypatch.setattr(TL.ops, "flash_attention", flash_call)
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache = tlm.init_cache(cfg, BATCH, MAX_LEN, "cpu")
+    tokens = torch.from_numpy(_rng("in place").integers(
+        0, cfg.vocab_size, size=(BATCH, PROMPT)))
+    logits, _ = tlm.prefill(cfg, params, {"tokens": tokens}, cache)
+    assert bool(torch.isfinite(logits).all())
+    if flash:
+        assert copies == []
+        assert kv_heads == [cfg.num_kv_heads] * cfg.num_layers
+    else:
+        assert copies == [cfg.q_per_kv] * (2 * cfg.num_layers)
+        assert kv_heads == []
+
+
 def test_params_layout_and_counts_match_the_reference():
     for arch in ARCHS:
         jcfg, tcfg = jget_config(arch, smoke=True), tget_config(arch,
