@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--n 1000000] [--seed 0]
+    python3 chip_smoke.py [--n 1000000] [--seed 0] [--baseline-pairwise PATH]
 
 Needs one CUDA device and ``nvcc``; imports nothing of JAX.  Prints one
 JSON object per line, one per phase, and fails (non-zero exit, no
@@ -19,8 +19,21 @@ result line) as soon as a phase fails:
   kernels  every kernel wrapper against its plain PyTorch version on the
            card: on the captured main-path inputs, on ragged shapes, on
            integer lattices (counts and argmins must be equal) and on
-           random reals (d2 within rtol 1e-6); CUDA-event times beside
-           the least time the card could take for the same work
+           random reals (d2 within rtol 1e-6), and on the edge shapes of
+           the warp-per-slot distance kernels (rows around the lane
+           counts, unaligned slabs, 50,000 slots, dead slots between live
+           ones, rows saturating stop_at at different candidates, ties
+           across phase boundaries, ragged unbatched slots, d = 7);
+           eager times (CUDA events around wrapper calls) beside the
+           least time the card could take for the same work and, for the
+           distance kernels, device times of CUDA-graph replays over
+           copies of the operands that exceed the L2 cache
+           (``graph_ms``) and an instruction-count estimate of the
+           issue-rate floor of their exact arithmetic (``floor_ms``); the
+           staging route of each case and the distance kernels'
+           registers and spills; with ``--baseline-pairwise PATH`` that
+           build of ``pairwise.cu`` timed both ways beside this one, in
+           turns (``parent_ms``, ``parent_graph_ms``)
   check    (a) engine "device" (plain plane) gives equal labels and core
            flags; (b) core flags and the nearest-core rule recomputed in
            float64 for sampled points against all points; (c) the same
@@ -81,6 +94,7 @@ prints them, and the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -103,6 +117,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
+# instruction issue of the card's CUDA cores: 132 SMs x 128 lanes at the
+# H100 SXM's 1.98 GHz boost clock, lane-instructions per second (an
+# assumption: the clock under load is not read); its L2 cache, bytes
+PEAK_ISSUE_S = 132 * 128 * 1.98e9
+L2_BYTES = 50 * 2 ** 20
 MIN_PTS = 64
 PAIRWISE_SOURCE = "src/repro_torch/kernels/csrc/pairwise.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -144,6 +163,183 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fns, reps: int = 20, replays: int = 3) -> float:
+    """Mean device milliseconds of one call: ``reps`` calls captured in a
+    CUDA graph (so no host time lies between the launches), taking the
+    closures of ``fns`` in turn, the graph replayed ``replays`` times
+    between CUDA events after a warm-up."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def distance_call(lib, name, a, b, vb, va=None, eps=None, stop_at=None):
+    """``fn()`` that launches ``lib``'s C entry of a distance kernel
+    (``eps_count_batch`` or ``row_min_batch``) on these operands into
+    outputs allocated once: the same launch as the wrapper's, without
+    its host-side checks, so that two builds of ``pairwise.cu`` are timed
+    alike.  2-d operands (a [M, d], b [N, d]) take the unbatched
+    functions' launch: slots of ``ROWS_PER_SLOT`` rows sharing b."""
+    from repro_torch.kernels.ops import ROWS_PER_SLOT, _eps2
+    if a.dim() == 2:
+        M, d = a.shape
+        C = b.shape[0]
+        B, P, rows, b_stride, vb_stride = ((M + ROWS_PER_SLOT - 1)
+                                           // ROWS_PER_SLOT, ROWS_PER_SLOT,
+                                           M, 0, 0)
+    else:
+        B, P, d = a.shape
+        C = b.shape[1]
+        rows, b_stride, vb_stride = B * P, C * d, C
+    vbu = vb.view(torch.uint8)
+    vau = None if va is None else va.view(torch.uint8)
+    if name == "eps_count_batch":
+        out = torch.empty((rows,), dtype=torch.int32, device=a.device)
+        eps2 = _eps2(eps)
+
+        def fn():
+            err = lib.grit_eps_count_batch(
+                a.data_ptr(), b.data_ptr(), vbu.data_ptr(),
+                None if vau is None else vau.data_ptr(), out.data_ptr(), B, P,
+                rows, C, d, b_stride, vb_stride, eps2,
+                0 if stop_at is None else int(stop_at),
+                torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"{name}: launch failed ({err})")
+        return fn
+    mins = torch.empty((rows,), dtype=torch.float32, device=a.device)
+    args = torch.empty((rows,), dtype=torch.int32, device=a.device)
+
+    def fn():
+        err = lib.grit_row_min_batch(
+            a.data_ptr(), b.data_ptr(), vbu.data_ptr(), mins.data_ptr(),
+            args.data_ptr(), B, P, rows, C, d, b_stride, vb_stride,
+            torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"{name}: launch failed ({err})")
+    return fn
+
+
+def rotation(args):
+    """Copies of a distance call's tensor operands (scalars shared) that
+    together touch three times the card's L2 cache, so that launches
+    taking them in turn read device memory as the main path does, not the
+    previous launch's bytes from L2.  Touched bytes: the rows, the masks
+    and the coordinates of the valid candidates."""
+    a, b, vb = args[:3]
+    va = args[3] if len(args) > 3 else None
+    d = a.shape[-1]
+    touched = (a.numel() * 4 + vb.numel() + (0 if va is None else va.numel())
+               + 4 * d * int(vb.sum()))
+    k = max(1, min(16, -(-3 * L2_BYTES // max(touched, 1))))
+    clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+    return [args] + [tuple(clone(x) for x in args) for _ in range(k - 1)]
+
+
+@contextlib.contextmanager
+def pairwise_lib(lib):
+    """The distance wrappers of ``kernels.ops`` launching ``lib`` (another
+    build of ``pairwise.cu``) instead of the port's library."""
+    from repro_torch.kernels import ops
+    saved = ops._lib()
+    ops._LIB = lib
+    try:
+        yield
+    finally:
+        ops._LIB = saved
+
+
+def time_distance(lib, baseline, name, args, wrapper):
+    """Times of one distance call on ``args`` (``distance_call``'s
+    operands): ``ms``, the eager ``wrapper()`` by CUDA events (host work
+    included; the time this script reports for every kernel), and
+    ``graph_ms``, the C entry of ``lib`` launched back to back in a CUDA
+    graph over the operands' ``rotation``.  With a ``baseline`` build also
+    ``parent_ms`` and ``parent_graph_ms`` the same ways, the two builds
+    timed in turns (new, parent, new, parent) and averaged."""
+    rot = rotation(args)
+    new = [distance_call(lib, name, *x) for x in rot]
+    if baseline is None:
+        return {"ms": cuda_ms(wrapper), "graph_ms": graph_ms(new)}
+    old = [distance_call(baseline, name, *x) for x in rot]
+    t = {"ms": [], "graph_ms": [], "parent_ms": [], "parent_graph_ms": []}
+    for _ in range(2):
+        t["ms"].append(cuda_ms(wrapper))
+        t["graph_ms"].append(graph_ms(new))
+        with pairwise_lib(baseline):
+            t["parent_ms"].append(cuda_ms(wrapper))
+        t["parent_graph_ms"].append(graph_ms(old))
+    return {k: float(np.mean(v)) for k, v in t.items()}
+
+
+def floor_ms(name: str, pairs: float, d: int, P: int) -> float:
+    """An estimate, from an instruction count, of the issue-rate floor of
+    the exact distance form: ``pairs`` (live row, valid candidate) pairs
+    at 3d - 1 f32 instructions each (d subtractions, d multiplies, d - 1
+    adds: no fused multiply-add, so each term is rounded as in the plain
+    version) plus the decision (row_min: a compare and two selects, 3;
+    eps_count: a compare and an add, 2) plus a share of the broadcast
+    candidate load (1/2 where a lane holds two of a slot's P > 32 rows,
+    else 1): 11.5 instructions a pair for row_min_batch at d = 3, over
+    ``PEAK_ISSUE_S`` lane-instructions a second, which assumes the boost
+    clock (the SM clock under load is not read)."""
+    per_pair = (3 * d - 1 + (3 if name.startswith("row_min") else 2)
+                + (0.5 if P > 32 else 1.0))
+    return pairs * per_pair / PEAK_ISSUE_S * 1e3
+
+
+def pairwise_build_report():
+    """``eps_count_batch`` / ``row_min_batch`` as built: per kernel
+    (``dist_kernel<row_min, D>``, D = 0 the generic d > 5 one) its
+    registers, stack and spill bytes from the ptxas report that the build
+    keeps beside the library."""
+    from repro_torch.kernels import build
+    rep = {}
+    lines = build.log_path("pairwise").read_text().splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*dist_kernelILb(\d)ELi(\d)E",
+                      line)
+        if not m:
+            continue
+        key = (("row_min" if m.group(1) == "1" else "eps_count")
+               + f"_d{m.group(2)}")
+        row = {}
+        for nxt in lines[i + 1:i + 4]:
+            s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", nxt)
+            if s:
+                row.update(stack_bytes=int(s.group(1)),
+                           spill_store_bytes=int(s.group(2)),
+                           spill_load_bytes=int(s.group(3)))
+            r = re.search(r"Used (\d+) registers", nxt)
+            if r:
+                row["registers"] = int(r.group(1))
+        rep[key] = row
+    for key in ("row_min_d3", "eps_count_d3"):
+        require(key in rep and "registers" in rep[key],
+                f"no ptxas report of {key} in the build log")
+        require(rep[key]["spill_store_bytes"] == 0
+                and rep[key]["spill_load_bytes"] == 0,
+                f"the main path's {key} kernel spills registers: {rep[key]}")
+    return rep
 
 
 # --------------------------------------------------------------------------
@@ -221,31 +417,72 @@ def compare_row_min(ops_mod, a, b, vb, batched):
     return err, rel_ok, arg_mismatch
 
 
-def lattice_inputs(B, P, C, d, seed, dev, dup=False):
+def lattice_inputs(B, P, C, d, seed, dev, dup=False, dead_every=0,
+                   pair_dups=False):
     """Integer coordinates (float32-exact distances), random masks, one
-    all-masked slot when B > 1, optional duplicated candidates."""
+    all-masked slot when B > 1, optional duplicated candidates (the
+    second half repeating the first; with ``pair_dups`` also each odd
+    candidate repeating the even one before it, so a tie straddles every
+    phase boundary), and with ``dead_every`` = k every k-th slot without
+    a live row and every k-th (shifted by one) without a valid candidate,
+    interleaved with live ones."""
     rng = np.random.default_rng(seed)
     a = rng.integers(-40, 40, size=(B, P, d)).astype(np.float32)
     b = rng.integers(-40, 40, size=(B, C, d)).astype(np.float32)
     if dup and C > 1:
         b[:, C // 2:] = b[:, :C - C // 2]
+    if pair_dups and C > 1:
+        b[:, 1::2] = b[:, 0:C - 1:2]
     vb = rng.uniform(size=(B, C)) > 0.3
     va = rng.uniform(size=(B, P)) > 0.2
     if B > 1:
         vb[0] = False
+    if dead_every:
+        va[::dead_every] = False
+        vb[1::dead_every] = False
     t = lambda x: torch.as_tensor(x).to(dev)
     return t(a), t(b), t(vb), t(va)
 
 
-def kernels_phase(captured, dev):
+# edge shapes of the warp-per-slot design: (B, P, C, d, dead_every,
+# pair_dups); rows per slot around the lane counts (8: rows x phases,
+# 31 / 32 / 33: one or two rows a lane, 63 / 127 / 200: several 64-row
+# tasks), candidate widths that leave every slot's slab unaligned (37,
+# 513), more slots than resident warps, d = 7 (planes, generic route)
+EDGE_SHAPES = [(6, 8, 301, 3, 2, True), (6, 31, 300, 3, 3, True),
+               (6, 32, 513, 3, 2, False), (6, 33, 37, 3, 2, True),
+               (5, 63, 1029, 3, 2, True), (4, 127, 600, 3, 2, False),
+               (3, 200, 700, 3, 0, True), (50_000, 8, 37, 3, 2, True),
+               (4, 40, 301, 7, 2, True), (3, 5, 1100, 7, 0, True),
+               (4, 63, 777, 4, 2, True), (4, 33, 515, 5, 2, True)]
+
+
+def stop_lattice(dev):
+    """Rows that reach stop_at at different candidates and in different
+    slots (so different warps): 1-d candidates 0 .. C-1, slot g's rows
+    spread along the line with an offset of its own."""
+    B, P, C = 64, 40, 1500
+    b = np.broadcast_to(np.arange(C, dtype=np.float32)[None, :, None],
+                        (B, C, 1)).copy()
+    rng = np.random.default_rng(11)
+    a = (rng.integers(0, C, size=(B, P, 1))).astype(np.float32)
+    vb = np.ones((B, C), bool)
+    va = rng.uniform(size=(B, P)) > 0.1
+    t = lambda x: torch.as_tensor(x).to(dev)
+    return t(a), t(b), t(vb), t(va)
+
+
+def kernels_phase(captured, dev, baseline=None):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ops import (eps_count_batch_plain,
                                          row_min_batch_plain)
     shapes = [(1, 1, 1, 1), (3, 5, 7, 2), (2, 17, 130, 3), (4, 127, 129, 4),
               (2, 64, 1300, 5), (3, 63, 600, 3), (2, 9, 260, 7)]
     cases = 0
+    routes = {}
     # 1. integer lattices: everything equal, whatever the thread layout
     for i, (B, P, C, d) in enumerate(shapes):
+        routes[f"{B}x{P}x{C}x{d}"] = ops.pairwise_route(d)
         for dup in (False, True):
             a, b, vb, va = lattice_inputs(B, P, C, d, 100 + i, dev, dup)
             eps = 17.0
@@ -265,6 +502,35 @@ def kernels_phase(captured, dev):
             require(err == 0.0 and mism == 0,
                     f"row_min differs on lattice {(P, C, d)}")
             cases += 4
+    # 1b. the edge shapes of the warp-per-slot design, on lattices
+    for i, (B, P, C, d, dead, pairs) in enumerate(EDGE_SHAPES):
+        routes[f"{B}x{P}x{C}x{d}"] = ops.pairwise_route(d)
+        a, b, vb, va = lattice_inputs(B, P, C, d, 300 + i, dev, True, dead,
+                                      pairs)
+        for stop_at in (None, 1, 5, 40):
+            diff = compare_eps_count(ops, a, b, 17.0, vb, va, stop_at, True)
+            require(diff == 0, f"eps_count_batch differs on edge lattice "
+                    f"{(B, P, C, d)} stop_at={stop_at}: {diff}")
+        err, _, mism = compare_row_min(ops, a, b, vb, True)
+        require(err == 0.0 and mism == 0, f"row_min_batch differs on edge "
+                f"lattice {(B, P, C, d)}: err={err} argmin={mism}")
+        cases += 5
+    a, b, vb, va = stop_lattice(dev)
+    for stop_at in (1, 3, 7, 20):
+        diff = compare_eps_count(ops, a, b, 6.0, vb, va, stop_at, True)
+        require(diff == 0, f"eps_count_batch differs where rows saturate "
+                f"at different candidates, stop_at={stop_at}: {diff}")
+        cases += 1
+    for M in (33, 1000):                # the unbatched pair, ragged slots
+        a, b, vb, _ = lattice_inputs(1, M, 777, 3, 400 + M, dev, True, 0,
+                                     True)
+        diff = compare_eps_count(ops, a[0], b[0], 17.0, vb[0], None, None,
+                                 False)
+        err, _, mism = compare_row_min(ops, a[0], b[0], vb[0], False)
+        require(diff == 0 and err == 0.0 and mism == 0,
+                f"unbatched pair differs at M = {M}: count {diff}, "
+                f"d2 {err}, argmin {mism}")
+        cases += 2
     # 2. the exact-eps tie lattice: d2 == eps2 counts as a hit, and the
     # nearest candidate at exactly eps is found
     n = 700
@@ -306,26 +572,39 @@ def kernels_phase(captured, dev):
 
     # 4. main-path inputs (the largest call of every candidate width the
     # fit swept, captured from it) and the unbatched pair at a size of
-    # its own: compare, then time.  The summary row of a batched kernel
-    # is the width the fit called most often (the widest among equals).
+    # its own: compare, then time (``time_distance``: ms eager as for
+    # every kernel, graph_ms device time over rotated copies, parent_*
+    # beside them when a baseline build is given).  floor_ms is an
+    # instruction-count estimate (``floor_ms``), not a measurement.  The
+    # summary row of a batched kernel is the width the fit called most
+    # often (the widest among equals); main_path sums calls x each time
+    # over the widths.
+    lib = ops._lib()
     rows, tiers = [], {"eps_count_batch": [], "row_min_batch": []}
+
+    def timed(name, args, wrapper, plain, row):
+        row.update(time_distance(lib, baseline, name, args, wrapper))
+        row["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+        return row
+
     for C in sorted(captured["eps_count_batch"]):
         (a, b, vb, va, eps, stop_at), calls = captured["eps_count_batch"][C]
         B, P, d = a.shape
         diff = compare_eps_count(ops, a, b, eps, vb, va, stop_at, True)
         require(diff == 0, f"eps_count_batch differs from its plain version "
                 f"on the main path's inputs at width {C}: {diff}")
-        nbytes, nops = _needed_work(va.sum(1).double(), vb.sum(1).double(),
-                                    B, P, C, d, True)
+        live, valid = va.sum(1).double(), vb.sum(1).double()
+        nbytes, nops = _needed_work(live, valid, B, P, C, d, True)
         bound, by = _bound(nbytes, nops)
-        tiers["eps_count_batch"].append(dict(
-            name="eps_count_batch", shape=[B, P, C, d], calls=calls,
-            max_abs_err=float(diff),
-            ms=cuda_ms(lambda: ops.eps_count_batch(a, b, eps, vb, va,
-                                                   stop_at=stop_at)),
-            plain_ms=cuda_ms(lambda: eps_count_batch_plain(a, b, eps, vb),
-                             reps=2, warmup=1),
-            bound_ms=bound, bound_by=by))
+        tiers["eps_count_batch"].append(timed(
+            "eps_count_batch", (a, b, vb, va, eps, stop_at),
+            lambda: ops.eps_count_batch(a, b, eps, vb, va, stop_at=stop_at),
+            lambda: eps_count_batch_plain(a, b, eps, vb),
+            dict(name="eps_count_batch", shape=[B, P, C, d], calls=calls,
+                 kernel_route=ops.pairwise_route(d), max_abs_err=float(diff),
+                 bound_ms=bound, bound_by=by,
+                 floor_ms=floor_ms("eps_count_batch",
+                                   float((live * valid).sum()), d, P))))
     for C in sorted(captured["row_min_batch"]):
         (a, b, vb), calls = captured["row_min_batch"][C]
         B, P, d = a.shape
@@ -333,19 +612,29 @@ def kernels_phase(captured, dev):
         require(err == 0.0 and mism == 0, f"row_min_batch differs from its "
                 f"plain version on the main path's inputs at width {C}: "
                 f"err={err} argmin={mism}")
+        valid = vb.sum(1).double()
         nbytes, nops = _needed_work(
-            torch.full((B,), float(P), device=dev).double(),
-            vb.sum(1).double(), B, P, C, d, False)
+            torch.full((B,), float(P), device=dev).double(), valid, B, P, C,
+            d, False)
         bound, by = _bound(nbytes + 4.0 * B * P, nops)    # second output
-        tiers["row_min_batch"].append(dict(
-            name="row_min_batch", shape=[B, P, C, d], calls=calls,
-            max_abs_err=float(err),
-            ms=cuda_ms(lambda: ops.row_min_batch(a, b, vb)),
-            plain_ms=cuda_ms(lambda: row_min_batch_plain(a, b, vb),
-                             reps=2, warmup=1),
-            bound_ms=bound, bound_by=by))
+        tiers["row_min_batch"].append(timed(
+            "row_min_batch", (a, b, vb),
+            lambda: ops.row_min_batch(a, b, vb),
+            lambda: row_min_batch_plain(a, b, vb),
+            dict(name="row_min_batch", shape=[B, P, C, d], calls=calls,
+                 kernel_route=ops.pairwise_route(d), max_abs_err=float(err),
+                 bound_ms=bound, bound_by=by,
+                 floor_ms=floor_ms("row_min_batch",
+                                   float(P * valid.sum()), d, P))))
+    main_path = {}
     for name in ("eps_count_batch", "row_min_batch"):
-        rows.append(max(tiers[name], key=lambda r: (r["calls"], r["shape"][2])))
+        rows.append(dict(max(tiers[name],
+                             key=lambda r: (r["calls"], r["shape"][2]))))
+        main_path[name] = {key: sum(t["calls"] * t[key] for t in tiers[name])
+                           for key in ("ms", "graph_ms", "parent_ms",
+                                       "parent_graph_ms", "bound_ms",
+                                       "floor_ms")
+                           if key in tiers[name][0]}
 
     M, N, d = 65536, 4096, 3
     rng = np.random.default_rng(7)
@@ -358,25 +647,31 @@ def kernels_phase(captured, dev):
     live = torch.full((1,), float(M), device=dev).double()
     nbytes, nops = _needed_work(live, vb.sum().double()[None], 1, M, N, d, False)
     bound, by = _bound(nbytes, nops)
+    pairs = float(M * vb.sum())
     rows.append(dict(
         name="eps_count", shape=[M, N, d], max_abs_err=float(diff),
-        ms=cuda_ms(lambda: ops.eps_count(a, b, eps, vb)),
+        **time_distance(lib, baseline, "eps_count_batch",
+                        (a, b, vb, None, eps),
+                        lambda: ops.eps_count(a, b, eps, vb)),
         plain_ms=cuda_ms(lambda: eps_count_batch_plain(a[None], b[None], eps,
                                                        vb[None]),
                          reps=2, warmup=1),
-        bound_ms=bound, bound_by=by))
+        bound_ms=bound, bound_by=by,
+        floor_ms=floor_ms("eps_count", pairs, d, ops.ROWS_PER_SLOT)))
     err, rel_ok, mism = compare_row_min(ops, a, b, vb, False)
     require(err == 0.0 and mism == 0,
             f"row_min differs from its plain version: err={err} argmin={mism}")
     rows.append(dict(
         name="row_min", shape=[M, N, d], max_abs_err=float(err),
-        ms=cuda_ms(lambda: ops.row_min(a, b, vb)),
+        **time_distance(lib, baseline, "row_min_batch", (a, b, vb),
+                        lambda: ops.row_min(a, b, vb)),
         plain_ms=cuda_ms(lambda: row_min_batch_plain(a[None], b[None],
                                                      vb[None]),
                          reps=2, warmup=1),
         bound_ms=_bound(nbytes + 4.0 * M, nops)[0],
-        bound_by=_bound(nbytes + 4.0 * M, nops)[1]))
-    return rows, tiers, cases, band_rows
+        bound_by=_bound(nbytes + 4.0 * M, nops)[1],
+        floor_ms=floor_ms("row_min", pairs, d, ops.ROWS_PER_SLOT)))
+    return rows, tiers, main_path, cases, band_rows, routes
 
 
 # --------------------------------------------------------------------------
@@ -1176,26 +1471,38 @@ def _warm_prefill(cfg, params, toks, dev, reps=3):
     host_ms = [once() for _ in range(reps)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        prefill(cfg, params, {"tokens": toks}, cache)
+    # the trace must hold every launch of the call: a trace that lost a
+    # kernel record (seen once in a run of this script) is taken again,
+    # once; the launch counts of ops.LAUNCHES must match either way
+    shown = []
+    for _ in range(2):
+        from repro_torch.kernels import ops
+        before = ops.LAUNCHES["flash_attention"]
+        cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    del cache
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "Command Buffer" not in e.name]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    flash = [e for e in kern if "flash_wgmma_kernel" in e.name]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prefill(cfg, params, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        del cache
+        require(ops.LAUNCHES["flash_attention"] - before == cfg.num_layers,
+                "lm: the profiled prefill did not launch flash once a layer")
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Command Buffer" not in e.name]
+        flash = [e for e in kern if "flash_wgmma_kernel" in e.name]
+        shown.append(len(flash))
+        if len(flash) == cfg.num_layers:
+            break
     require(len(flash) == cfg.num_layers,
-            f"lm: the profiled prefill shows {len(flash)} flash kernels")
+            f"lm: the profiled prefills show {shown} flash kernels")
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     return dict(batch=list(toks.shape), host_ms=host_ms,
                 profiled_wall_ms=wall, kernel_ms=busy,
                 flash_kernel_ms=sum(e.time_range.elapsed_us()
                                     for e in flash) / 1e3,
-                flash_kernels=len(flash),
+                flash_kernels=len(flash), flash_kernels_traced=shown,
                 idle_share=max(0.0, 1.0 - busy / wall))
 
 
@@ -1279,6 +1586,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline-pairwise", metavar="PATH", default=None,
+                    help="another version of kernels/csrc/pairwise.cu, built "
+                         "beside this one and timed against it at every "
+                         "captured width (phase kernels, parent_ms)")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -1302,8 +1613,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
+    baseline = None
+    if args.baseline_pairwise:
+        baseline = ops.declare_distance(build.load_source(
+            args.baseline_pairwise, "pairwise_baseline", "pairwise"))
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(p.name for p in libs.values()))
+         libraries=sorted(p.name for p in libs.values()),
+         baseline_pairwise=args.baseline_pairwise)
 
     # ---- fit ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1383,10 +1699,17 @@ def main() -> int:
          max_memory_allocated=peak_bytes)
 
     # ---- kernels --------------------------------------------------------
-    rows, tiers, cases, band_rows = kernels_phase(captured, dev)
+    pairwise_build = pairwise_build_report()
+    rows, tiers, main_path, cases, band_rows, routes = kernels_phase(
+        captured, dev, baseline)
     emit("kernels", comparisons=cases, rows_in_eps_band=band_rows,
          tolerance="integer outputs equal; d2 rtol 1e-6 (equal on lattices)",
-         shapes={r["name"]: r["shape"] for r in rows}, main_path_widths=tiers)
+         shapes={r["name"]: r["shape"] for r in rows}, routes=routes,
+         pairwise_build=pairwise_build, main_path_widths=tiers,
+         main_path=main_path,
+         floor_ms_is="an instruction-count estimate at the 1.98 GHz boost "
+                     "clock, not a measurement",
+         unbatched=[r for r in rows if r["name"] in ("eps_count", "row_min")])
 
     # ---- check ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1419,7 +1742,20 @@ def main() -> int:
         pts, eps, caps, res.labels, args.seed, dev)
     require(serve_launches["row_min_batch"] > 0,
             "kernel-mode predict never launched row_min_batch")
-    emit("serve", **serve, launches=serve_launches)
+    # the largest kernel-mode predict call: row_min_batch against its
+    # plain version, timed (beside the baseline build when one is given)
+    pa, pb, pvb = predict_call
+    err, _, mism = compare_row_min(ops, pa, pb, pvb, True)
+    require(err == 0.0 and mism == 0, f"row_min_batch differs from its "
+            f"plain version on the predict call: err={err} argmin={mism}")
+    predict_row_min = dict(shape=[*pa.shape[:2], pb.shape[1], pa.shape[2]],
+                           kernel_route=ops.pairwise_route(pa.shape[2]),
+                           **time_distance(ops._lib(), baseline,
+                                           "row_min_batch", (pa, pb, pvb),
+                                           lambda: ops.row_min_batch(pa, pb,
+                                                                     pvb)))
+    emit("serve", **serve, launches=serve_launches,
+         predict_row_min=predict_row_min)
 
     # ---- guard-band kernels ---------------------------------------------
     _, lo2, hi2 = index.device_state.thresholds(index)
@@ -1461,6 +1797,7 @@ def main() -> int:
         off = ("fit", "serve") if name == "flash_attention" else ("lm",)
         require(all(paths[p] == 0 for p in off),
                 f"{name} launched on a path it has no place on: {paths}")
+    extra = ("kernel_route", "graph_ms", "parent_ms", "parent_graph_ms")
     kernels = [dict(name=r["name"], route="cuda", source=PAIRWISE_SOURCE,
                     replaces=REPLACES[r["name"]],
                     launches=sum(by_path[r["name"]].values()),
@@ -1470,7 +1807,8 @@ def main() -> int:
                                      + lm_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None)
+                    bound_by=r["bound_by"], library_ms=None,
+                    **{k: r[k] for k in extra if k in r})
                for r in rows + band_rows_]
     fr = flash_rows[0]                  # the lm path's prefill call
     kernels.append(dict(

@@ -5,9 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 loaded with ``ctypes``.  Every source gets ``NVCC_FLAGS`` and its own
 entry of ``SOURCE_FLAGS``: the distance kernels are built with
 ``-fmad=false`` (each squared term rounded as in their plain versions),
-flash attention without it (its dot products are fused multiply-adds)
-and with ``-Xptxas -v``; the compiler's output, with ptxas's report of
-registers and spills per kernel, is kept beside each library as
+flash attention without it (its dot products are fused multiply-adds);
+both with ``-Xptxas -v``, and the compiler's output, with ptxas's report
+of registers and spills per kernel, is kept beside each library as
 ``lib<name>-<hash>.log``.  The hash is of the source text, the text of
 every local header it includes (``#include "x.cuh"``, followed
 recursively) and the source's flags, so an edited source, header or flag
@@ -30,13 +30,13 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "pairwise": ("-fmad=false",),
+    "pairwise": ("-fmad=false", "-Xptxas", "-v"),
     "flash_attention": ("-Xptxas", "-v"),
 }
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -89,14 +89,15 @@ def headers(src: Path) -> List[Path]:
     return found
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, src: Optional[Path] = None,
+            like: Optional[str] = None) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     if not src.exists():
         raise KeyError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
     for path in headers(src):
         h.update(path.read_bytes())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(flags(like or name)).encode())
     return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -105,16 +106,17 @@ def log_path(name: str) -> Path:
     return _target(name)[1].with_suffix(".log")
 
 
-def _start(name: str):
+def _start(name: str, src: Optional[Path] = None,
+           like: Optional[str] = None):
     """Start nvcc for one source unless its library exists.  Returns
     (process or None, temporary output, final library path)."""
-    src, lib = _target(name)
+    src, lib = _target(name, src, like)
     if lib.exists():
         return None, None, lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [_nvcc(), *flags(name), "-o", str(tmp), str(src)],
+        [_nvcc(), *flags(like or name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 
@@ -124,7 +126,7 @@ def _finish(name: str, proc, tmp, lib) -> Path:
         return lib
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+        raise RuntimeError(f"nvcc failed on {name} "
                            f"(exit {proc.returncode}):\n{out}")
     lib.with_suffix(".log").write_text(out)
     os.replace(tmp, lib)          # atomic: a reader never sees half a file
@@ -143,4 +145,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(_finish(name, *_start(name))))
+    return _LIBS[name]
+
+
+def load_source(src, name: str, like: str) -> ctypes.CDLL:
+    """Build and load another version of a kernel source, ``src`` (a
+    path anywhere), as ``lib<name>-<hash>.so`` with the flags of
+    ``csrc/<like>.cu``: for timing two versions of a kernel side by side
+    in one process."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(_finish(name, *_start(name, src, like))))
     return _LIBS[name]

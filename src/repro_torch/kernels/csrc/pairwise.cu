@@ -21,38 +21,68 @@
 // tensor core, no feature padding (built with -fmad=false, so each term
 // is a rounded multiply followed by a rounded add, in the order k = 0..d-1,
 // which is the arithmetic of the plain PyTorch version).  Validity is a
-// mask read by the kernel, not FAR-folded coordinates.
+// mask read by the kernel, not FAR-folded coordinates.  On the tensor
+// cores (TF32 or bf16) the same form would change counts at exactly eps.
 //
 // What bounds it: the function must move 4*B*(P+C)*d + B*C + 4*B*P bytes
 // and does 3*d*B*P*C f32 operations, i.e. about 3*P/4 operations per byte
-// for C >> P.  At the main path's P = MinPts-1 = 63 that is ~47 op/byte
-// against the card's 67 TFLOP/s / 3.35 TB/s = 20 op/byte: operation bound
-// on the full padded shape.  The design therefore cuts operations rather
-// than bytes: one block per slot, the slot's candidates staged tile by
-// tile through shared memory (read from device memory once, reused by
-// all P rows), rows dealt round-robin to the block's warps, lanes strided
-// over the tile's candidates.  Work that the data makes unnecessary is
-// skipped per slot: the padding tail past the last valid candidate,
-// rows masked by valid_a, whole slots without a live row, and (eps
-// count) the remaining tiles once every live row has reached stop_at.
+// for C >> P: operation bound at the main path's P = MinPts-1 = 63 on
+// dense slots, byte bound (the masks) on sparse ones.  Exactness costs
+// issue slots: without fused multiply-adds a (row, candidate) pair of
+// row_min is 3d-1 arithmetic instructions, a compare and two selects
+// (11 at d = 3; eps_count 10), against the 3d "operations" of the bound.
 //
-// The two guard-band twins are the same device code with more state per
-// row: eps_count_band_batch keeps two counters (hits at lo2 and at hi2)
-// and stops a slot once every row's lo count has reached its own
-// stop_row bar (bar 0 exempts a row); row_min2_batch keeps a
+// eps_count_batch / row_min_batch: a warp per task, no block barrier in
+// its scan.  A task is one slot's rows (at most 64: a slot of more rows is
+// several tasks) against all of its candidates; a slot of at most 32 rows
+// whose candidates span several chunks is split instead over up to four
+// warps of one block, each taking a range of its chunks.  The grid has a
+// warp for every task (split), and the warps resident on an SM keep each
+// other's bytes in flight.  Per warp:
+//   1. lane 0 puts the task's first kStages mask chunks of kChunk
+//      positions in flight by bulk copies (cp.async.bulk), each completing
+//      on the mbarrier of its stage, and puts the next chunk into a stage
+//      once the warp has read it; meanwhile the lanes read valid_a and
+//      compact the task's live rows into lanes: two a lane above 32 live
+//      rows, else rows x phases;
+//   2. each chunk's valid candidates are compacted, in ascending index,
+//      32 positions a round with ballot + popc, and their coordinates
+//      gathered by cp.async into an item of kCap candidates (packed float4
+//      {x, y, z, index} for d <= 3, planes otherwise);
+//   3. when the next round would overflow the item, and at the end, the
+//      lanes scan it with the rows in registers (loaded at the first item,
+//      so a task without a valid candidate reads none): each candidate is
+//      one broadcast shared load for all of a lane's rows, with no mask
+//      test; lane phase f of a row takes the item's candidates f,
+//      f + phases, ... in ascending index with strict <.  eps_count checks
+//      every 32 candidates, across the warp, whether each live row has
+//      stop_at hits, and then ends the task.
+// At the end the phases merge (d2, index) lexicographically in a butterfly,
+// so the lowest index wins a tie; the warps of a split slot leave their
+// partial results in shared memory, and after the block's one barrier
+// warp 0 merges them the same way in split order (counts add).  Rows
+// masked by valid_a are neither scanned nor counted (their counts are 0).
+
+// The two guard-band twins keep the first design: one block per slot,
+// the slot's candidates staged tile by tile, rows dealt to warps and
+// candidates to lanes.  eps_count_band_batch keeps two counters (hits at
+// lo2 and at hi2) and stops a slot once every row's lo count has reached
+// its own stop_row bar (bar 0 exempts a row); row_min2_batch keeps a
 // (min, first index, runner-up) triple per lane and merges triples
 // lexicographically on (min, index) with
 // min2 = min(min2_a, min2_b, max(min_a, min_b)), so the runner-up is the
 // second order statistic of the row's distance multiset (a duplicate of
-// the minimum counts) whatever the lane layout.  Same bounds as above:
-// two comparisons or one more min per distance cost no extra bytes.
+// the minimum counts) whatever the lane layout.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
+// guard-band kernels: one block per slot
 constexpr int kThreads = 128;           // 4 warps per slot
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 512;              // candidates staged per step
@@ -106,141 +136,528 @@ __device__ __forceinline__ float sq_dist(const float* __restrict__ av, const flo
 
 constexpr int kMaxRegD = 8;   // feature dims held in registers per row
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-eps_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const uint8_t* __restrict__ valid_b, const uint8_t* __restrict__ valid_a,
-                 int* __restrict__ out, int P, int rows_total, int C, int d,
-                 long long b_stride, long long vb_stride, float eps2, int stop_at) {
-    extern __shared__ unsigned char smem[];
-    float* s_b = reinterpret_cast<float*>(smem);                     // [d][kTile]
-    int* s_cnt = reinterpret_cast<int*>(s_b + (size_t)d * kTile);    // [P]
-    int* s_red = s_cnt + P;                                          // [kWarps]
-    uint8_t* s_v = reinterpret_cast<uint8_t*>(s_red + kWarps);       // [kTile]
+// ---------------------------------------------------------------------------
+// eps_count / row_min: a warp per task (see the top of the file)
+// ---------------------------------------------------------------------------
 
-    const int g = blockIdx.x;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* ag = a + (size_t)g * P * d;
-    const float* bg = b + (size_t)g * b_stride;
-    const uint8_t* vbg = valid_b + (size_t)g * vb_stride;
-    const uint8_t* vag = valid_a ? valid_a + (size_t)g * P : nullptr;
-    int* og = out + (size_t)g * P;
-    const int pn = min(P, rows_total - g * P);       // ragged last slot
+constexpr int kWarpsPerBlock = 4;
+constexpr int kChunk = 512;        // candidate positions per staged mask chunk
+constexpr int kCap = 128;          // compacted candidates per item
+constexpr int kGroup = 64;         // rows per task, two a lane
+constexpr int kStages = 4;         // mask chunks in flight per warp
+constexpr int kNone = 0x7fffffff;
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of one block
 
-    for (int p = threadIdx.x; p < pn; p += kThreads) s_cnt[p] = 0;
-    int any_row = 0;
-    for (int p = threadIdx.x; p < pn; p += kThreads)
-        any_row |= vag ? (int)vag[p] : 1;
-    // also orders the s_cnt zeroing before the first accumulation
-    any_row = __syncthreads_or(any_row);
-    const int n_last = any_row ? last_valid(vbg, C, s_red) : 0;
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
-    for (int t0 = 0; t0 < n_last; t0 += kTile) {
-        const int tn = min(kTile, n_last - t0);
-        stage_tile(bg, vbg, t0, tn, d, s_b, s_v);
-        __syncthreads();
-        int saturated = 1;
-        for (int p = warp; p < pn; p += kWarps) {
-            if (vag && !vag[p]) continue;
-            float av[kMaxRegD];
-            const float* arow = ag + (size_t)p * d;
-            if (D > 0) {
-#pragma unroll
-                for (int k = 0; k < D; ++k) av[k] = arow[k];
-            }
-            int cnt = 0;
-            for (int j = lane; j < tn; j += 32) {
-                float d2 = (D > 0) ? sq_dist<D>(av, s_b, j, d)
-                                   : sq_dist<0>(arow, s_b, j, d);
-                cnt += (s_v[j] && d2 <= eps2) ? 1 : 0;
-            }
-            for (int o = 16; o > 0; o >>= 1)
-                cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-            int total = s_cnt[p] + cnt;       // row p belongs to this warp alone
-            __syncwarp();                     // every lane has read before lane 0 writes
-            if (lane == 0) s_cnt[p] = total;
-            if (total < stop_at) saturated = 0;
-        }
-        // every live row has stop_at hits: min(count, k) == min(exact, k)
-        // holds from here on, the remaining tiles cannot change a decision
-        if (__syncthreads_and(saturated) && stop_at > 0) break;
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < pn; p += kThreads) og[p] = s_cnt[p];
+// Shared memory of one warp, in bytes: an mbarrier per stage; kStages mask
+// chunks, each sized for the 16-byte-aligned span that holds its bytes;
+// the item of compacted candidates (float4 {x, y, z, index} for d <= 3,
+// else d coordinate planes and an index plane); the map from lane slots to
+// the task's live rows; the warp's partial results of a split slot.
+struct WarpSmem {
+    int stage_off, stage_bytes, comp_off, comp_bytes, rmap_off, part_off, total;
+};
+
+__host__ __device__ constexpr WarpSmem warp_smem(int d) {
+    WarpSmem w{};
+    w.stage_off = round16(kStages * 8);
+    w.stage_bytes = kChunk + 32;
+    w.comp_off = w.stage_off + kStages * w.stage_bytes;
+    w.comp_bytes = d <= 3 ? kCap * 16 : kCap * 4 * (d + 1);
+    w.rmap_off = w.comp_off + w.comp_bytes;
+    w.part_off = w.rmap_off + kGroup;
+    w.total = w.part_off + 32 * 8;
+    return w;
 }
 
+struct DistArgs {
+    const float* a;
+    const float* b;
+    const uint8_t* valid_b;
+    const uint8_t* valid_a;
+    int* out_cnt;
+    float* out_min;
+    int* out_arg;
+    int B, P, rows_total, C, d;
+    long long b_stride, vb_stride;
+    float eps2;
+    int stop_at;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int span_offset(const void* p) {
+    return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Where a task's rows are: slot, first row of the task in the slot's
+// numbering of all rows (slot * P + group * kGroup), and its row count
+// (0 for a group past the ragged last slot's rows).
+struct Task {
+    int slot, row0, rows;
+};
+
+__device__ __forceinline__ Task task_of(const DistArgs& p, int t, int n_groups,
+                                        int group_rows) {
+    Task k;
+    k.slot = n_groups == 1 ? t : t / n_groups;
+    const int in_slot = (t - k.slot * n_groups) * group_rows;
+    k.row0 = k.slot * p.P + in_slot;
+    k.rows = max(0, min(group_rows, min(p.P, p.rows_total - k.slot * p.P) - in_slot));
+    return k;
+}
+
+// d2 of one row against one candidate, sum over k in order, -fmad=false.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-row_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               const uint8_t* __restrict__ valid_b,
-               float* __restrict__ out_min, int* __restrict__ out_arg,
-               int P, int rows_total, int C, int d,
-               long long b_stride, long long vb_stride) {
-    extern __shared__ unsigned char smem[];
-    float* s_b = reinterpret_cast<float*>(smem);                     // [d][kTile]
-    float* s_min = s_b + (size_t)d * kTile;                          // [P]
-    int* s_arg = reinterpret_cast<int*>(s_min + P);                  // [P]
-    int* s_red = s_arg + P;                                          // [kWarps]
-    uint8_t* s_v = reinterpret_cast<uint8_t*>(s_red + kWarps);       // [kTile]
-
-    const int g = blockIdx.x;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* ag = a + (size_t)g * P * d;
-    const float* bg = b + (size_t)g * b_stride;
-    const uint8_t* vbg = valid_b + (size_t)g * vb_stride;
-    const int kNone = 0x7fffffff;
-    const int pn = min(P, rows_total - g * P);       // ragged last slot
-
-    for (int p = threadIdx.x; p < pn; p += kThreads) {
-        s_min[p] = CUDART_INF_F;
-        s_arg[p] = kNone;
+__device__ __forceinline__ float dist_packed(const float* av, float4 c) {
+    float t = av[0] - c.x;
+    float acc = t * t;
+    if (D > 1) {
+        t = av[1] - c.y;
+        acc = acc + t * t;
     }
-    __syncthreads();
-    const int n_last = last_valid(vbg, C, s_red);
+    if (D > 2) {
+        t = av[2] - c.z;
+        acc = acc + t * t;
+    }
+    return acc;
+}
 
-    for (int t0 = 0; t0 < n_last; t0 += kTile) {
-        const int tn = min(kTile, n_last - t0);
-        stage_tile(bg, vbg, t0, tn, d, s_b, s_v);
-        __syncthreads();
-        for (int p = warp; p < pn; p += kWarps) {
-            float av[kMaxRegD];
-            const float* arow = ag + (size_t)p * d;
-            if (D > 0) {
+// Planes: D = 4 or 5, or D = 0 for a runtime d <= kMaxRegD.
+template <int D>
+__device__ __forceinline__ float dist_planes(const float* av, const float* pl, int j,
+                                             int d) {
+    float t = av[0] - pl[j];
+    float acc = t * t;
 #pragma unroll
-                for (int k = 0; k < D; ++k) av[k] = arow[k];
-            }
-            float best = CUDART_INF_F;
-            int arg = kNone;
-            for (int j = lane; j < tn; j += 32) {
-                float d2 = (D > 0) ? sq_dist<D>(av, s_b, j, d)
-                                   : sq_dist<0>(arow, s_b, j, d);
-                // ascending j within a lane: strict < keeps the first minimum
-                if (s_v[j] && d2 < best) { best = d2; arg = t0 + j; }
-            }
-            // lexicographic (d2, index) reduction: the lowest index wins a tie
-            // whatever the lane layout
-            for (int o = 16; o > 0; o >>= 1) {
-                float ob = __shfl_xor_sync(0xffffffffu, best, o);
-                int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-                if (ob < best || (ob == best && oa < arg)) { best = ob; arg = oa; }
-            }
-            if (lane == 0) {
-                float cur = s_min[p];
-                if (best < cur || (best == cur && arg < s_arg[p])) {
-                    s_min[p] = best;
-                    s_arg[p] = arg;
+    for (int k = 1; k < (D > 0 ? D : kMaxRegD); ++k) {
+        if (D > 0 || k < d) {
+            t = av[k] - pl[k * kCap + j];
+            acc = acc + t * t;
+        }
+    }
+    return acc;
+}
+
+// Planes with the row read from device memory (d > kMaxRegD).
+__device__ __forceinline__ float dist_wide(const float* arow, const float* pl, int j,
+                                           int d) {
+    float t = __ldg(arow) - pl[j];
+    float acc = t * t;
+    for (int k = 1; k < d; ++k) {
+        t = __ldg(arow + k) - pl[k * kCap + j];
+        acc = acc + t * t;
+    }
+    return acc;
+}
+
+// Scan compacted candidates [0, n) of one item: lane phase `phase` of
+// `ph` takes j = phase, phase + ph, ... in ascending order, for its R
+// rows.  Returns true when eps_count may stop the task (every live row
+// has stop_at hits).  kMode: 0 packed, 1 planes with the rows in
+// registers, 2 planes with the rows read from device memory.
+template <bool kMin, int D, int R, int kMode, int kRegD>
+__device__ __forceinline__ bool scan_item(const unsigned char* cb, int n, int phase,
+                                          int ph, int span, int d, float eps2,
+                                          int stop_at, float (&ax)[2][kRegD],
+                                          const float* (&arow)[2], const bool (&live)[2],
+                                          int (&cnt)[2], float (&best)[2],
+                                          int (&arg)[2]) {
+    const float4* cp = reinterpret_cast<const float4*>(cb);
+    const float* pl = reinterpret_cast<const float*>(cb);
+    const int* pidx = reinterpret_cast<const int*>(cb) + d * kCap;
+    const int blk = (kMin || stop_at <= 0) ? n : 32;
+    for (int jb = 0; jb < n; jb += blk) {
+        const int je = min(n, jb + blk);
+#pragma unroll 4
+        for (int j = jb + phase; j < je; j += ph) {
+            if (kMode == 0) {
+                const float4 c = cp[j];
+#pragma unroll
+                for (int q = 0; q < R; ++q) {
+                    const float d2 = dist_packed<D>(ax[q], c);
+                    if (kMin) {
+                        if (d2 < best[q]) {
+                            best[q] = d2;
+                            arg[q] = __float_as_int(c.w);
+                        }
+                    } else {
+                        cnt[q] += d2 <= eps2 ? 1 : 0;
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int q = 0; q < R; ++q) {
+                    const float d2 = kMode == 1 ? dist_planes<D>(ax[q], pl, j, d)
+                                                : dist_wide(arow[q], pl, j, d);
+                    if (kMin) {
+                        if (d2 < best[q]) {
+                            best[q] = d2;
+                            arg[q] = pidx[j];
+                        }
+                    } else {
+                        cnt[q] += d2 <= eps2 ? 1 : 0;
+                    }
                 }
             }
         }
-        __syncthreads();
+        if (!kMin && stop_at > 0) {
+            bool sat = true;
+#pragma unroll
+            for (int q = 0; q < R; ++q) {
+                int tot = cnt[q];
+                for (int o = span; o < 32; o <<= 1)
+                    tot += __shfl_xor_sync(0xffffffffu, tot, o);
+                sat = sat && (!live[q] || tot >= stop_at);
+            }
+            if (__all_sync(0xffffffffu, sat)) return true;
+        }
     }
-    float* omin = out_min + (size_t)g * P;
-    int* oarg = out_arg + (size_t)g * P;
-    for (int p = threadIdx.x; p < pn; p += kThreads) {
-        float m = s_min[p];
-        omin[p] = m;
-        // no valid candidate (or only infinitely far ones): (inf, -1)
-        oarg[p] = (m == CUDART_INF_F) ? -1 : s_arg[p];
+    return false;
+}
+
+template <bool kMin, int D, int kMode, int kRegD>
+__device__ __forceinline__ bool scan_rows(bool two, const unsigned char* cb, int n,
+                                          int phase, int ph, int span, int d, float eps2,
+                                          int stop_at, float (&ax)[2][kRegD],
+                                          const float* (&arow)[2], const bool (&live)[2],
+                                          int (&cnt)[2], float (&best)[2], int (&arg)[2]) {
+    if (two)
+        return scan_item<kMin, D, 2, kMode>(cb, n, 0, 1, 32, d, eps2, stop_at, ax, arow,
+                                            live, cnt, best, arg);
+    return scan_item<kMin, D, 1, kMode>(cb, n, phase, ph, span, d, eps2, stop_at, ax, arow,
+                                        live, cnt, best, arg);
+}
+
+// Blocks of the kernel at feature dim D that fit an SM's shared memory
+// (D = 0: the generic kernel, sized at kMaxRegD), at most 6: the launch
+// bound that lets ptxas use the registers that occupancy leaves.
+constexpr int min_blocks(int D) {
+    const int per_block = kWarpsPerBlock * warp_smem(D > 0 ? D : kMaxRegD).total;
+    const int n = (int)(kMaxSmem / per_block);
+    return n < 1 ? 1 : (n > 6 ? 6 : n);
+}
+
+// One warp, one task: a slot's rows (at most kGroup) against its
+// candidates, or with splits > 1 (a slot of at most 32 rows, the block's
+// splits warps on one slot) against the warp's share of the candidate
+// chunks.
+template <bool kMin, int D>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, min_blocks(D))
+dist_kernel(const DistArgs p, int splits) {
+    constexpr int kRegD = (D > 0) ? D : kMaxRegD;
+    constexpr int kMode = (D >= 1 && D <= 3) ? 0 : 1;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned below = (1u << lane) - 1u;
+    const int d = (D > 0) ? D : p.d;
+    const WarpSmem ws = warp_smem(d);
+    unsigned char* wsm = smem + (size_t)warp * ws.total;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(wsm);
+
+    const int group_rows = min(p.P, kGroup);
+    const int n_groups = (p.P + group_rows - 1) / group_rows;
+    const int t = splits > 1 ? blockIdx.x : blockIdx.x * (blockDim.x >> 5) + warp;
+    Task k{0, 0, 0};
+    if (t < p.B * n_groups) k = task_of(p, t, n_groups, group_rows);
+    const int nch = max(1, (p.C + kChunk - 1) / kChunk);
+    const int per = (nch + splits - 1) / splits;
+    const int c0 = min(nch, (splits > 1 ? warp : 0) * per);
+    const int nq = k.rows > 0 ? min(nch, c0 + per) - c0 : 0;   // the warp's chunks
+    const uint8_t* vbs = p.valid_b + k.slot * p.vb_stride;
+
+    // step 1: lane 0 puts mask chunk c0 + q in flight into stage q % kStages
+    // by a bulk copy that completes the (q / kStages)-th phase of the stage's
+    // mbarrier (armed with no bytes for a chunk past the candidates)
+    if (lane == 0)
+        for (int s = 0; s < kStages; ++s) sm90::mbar_init(bars + s, 1);
+    sm90::mbar_init_fence();
+    __syncwarp();
+    auto stage = [&](int q) {
+        if (lane != 0) return;
+        const int s = q % kStages;
+        const int j0 = (c0 + q) * kChunk;
+        const int len = min(kChunk, p.C - j0);
+        uint32_t bytes = 0;
+        const uint8_t* src = vbs + j0;
+        if (len > 0) {
+            bytes = round16(span_offset(src) + len);
+            src -= span_offset(src);
+        }
+        sm90::mbar_expect_tx(bars + s, bytes);
+        if (bytes) sm90::bulk_load(wsm + ws.stage_off + s * ws.stage_bytes, src, bytes, bars + s);
+    };
+    int issued = min(nq, kStages);
+    for (int q = 0; q < issued; ++q) stage(q);
+
+    // the task's live rows (bit i of lo / hi is row i / 32 + i), compacted
+    // into lane slots: two a lane above 32 live rows, else rows x phases
+    unsigned lo, hi;
+    if (p.valid_a == nullptr) {
+        lo = k.rows >= 32 ? 0xffffffffu : (1u << k.rows) - 1u;
+        hi = k.rows >= 64 ? 0xffffffffu : k.rows > 32 ? (1u << (k.rows - 32)) - 1u : 0u;
+    } else {
+        const uint8_t* va = p.valid_a + k.row0;
+        lo = __ballot_sync(0xffffffffu, lane < k.rows && va[lane] != 0);
+        hi = __ballot_sync(0xffffffffu, lane + 32 < k.rows && va[lane + 32] != 0);
+    }
+    const int n_lo = __popc(lo);
+    const int n_live = n_lo + __popc(hi);
+    const bool two = n_live > 32;
+    int span = 32;
+    if (!two) {
+        span = 1;
+        while (span < n_live) span <<= 1;
+    }
+    const int ph = 32 / span;
+    const int phase = two ? 0 : lane / span;
+    const int slot0 = two ? lane : (lane & (span - 1));
+    const bool dense = n_live == k.rows;          // live rows are 0 .. n_live - 1
+    unsigned char* rmap = wsm + ws.rmap_off;      // live row of each lane slot
+    if (!dense) {
+        if (lo >> lane & 1u) rmap[__popc(lo & below)] = (unsigned char)lane;
+        if (hi >> lane & 1u) rmap[n_lo + __popc(hi & below)] = (unsigned char)(lane + 32);
+        __syncwarp();
+    }
+    float ax[2][kRegD];
+    const float* arow[2];
+    bool live[2];
+    int rowq[2];                    // the lane's rows within the task
+    int cnt[2];
+    float best[2];
+    int arg[2];
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+        const int sl = slot0 + 32 * qq;
+        live[qq] = sl < n_live;
+        rowq[qq] = !live[qq] ? 0 : dense ? sl : rmap[sl];
+        arow[qq] = p.a + (long long)(k.row0 + rowq[qq]) * d;
+        cnt[qq] = 0;
+        best[qq] = CUDART_INF_F;
+        arg[qq] = kNone;
+    }
+
+    // step 2: each chunk's valid candidates, 32 positions a round, are
+    // placed at their compacted positions in the item (ballot + popc) and
+    // their coordinates gathered there by cp.async; step 3, when the next
+    // round would take the item past kCap and at the end: the live rows scan
+    // it, one broadcast shared load per candidate.  eps_count stops once
+    // every live row has stop_at hits; the chunks already in flight are
+    // still waited for.
+    const float* bs = p.b + k.slot * p.b_stride;
+    unsigned char* cb = wsm + ws.comp_off;
+    int n = 0;
+    bool stop = n_live == 0;
+    bool rows_in = false;           // the rows are in registers
+    auto scan = [&]() {
+        if (!rows_in) {             // loaded while the first gathers land
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+                for (int kk = 0; kk < kRegD; ++kk)
+                    ax[qq][kk] = (live[qq] && kk < d) ? __ldg(arow[qq] + kk) : 0.0f;
+            rows_in = true;
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        bool done;
+        if (kMode == 0)
+            done = scan_rows<kMin, D, 0>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
+                                         ax, arow, live, cnt, best, arg);
+        else if (D > 0 || d <= kMaxRegD)
+            done = scan_rows<kMin, D, 1>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
+                                         ax, arow, live, cnt, best, arg);
+        else
+            done = scan_rows<kMin, D, 2>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
+                                         ax, arow, live, cnt, best, arg);
+        stop = stop || done;
+        n = 0;
+        __syncwarp();               // the item is read before it is refilled
+    };
+    for (int q = 0; q < issued; ++q) {
+        const int s = q % kStages;
+        sm90::mbar_wait(bars + s, (q / kStages) & 1);
+        const unsigned char* st = wsm + ws.stage_off + s * ws.stage_bytes;
+        const int j0 = (c0 + q) * kChunk;
+        const int len = min(kChunk, p.C - j0);
+        const uint8_t* vb = vbs + j0;
+        // a staged span of zeros holds no valid candidate
+        bool any = false;
+        for (int i = lane; !stop && i < (span_offset(vb) + len + 15) >> 4; i += 32) {
+            const uint4 w = reinterpret_cast<const uint4*>(st)[i];
+            any = any || (w.x | w.y | w.z | w.w) != 0;
+        }
+        if (__any_sync(0xffffffffu, any)) {
+            const unsigned char* mk = st + span_offset(vb);
+            for (int r = 0; 32 * r < len; ++r) {
+                const int i = 32 * r + lane;
+                const bool v = i < len && mk[i] != 0;
+                const unsigned bits = __ballot_sync(0xffffffffu, v);
+                if (n + __popc(bits) > kCap) {
+                    scan();
+                    if (stop) break;
+                }
+                if (v) {
+                    const int pos = n + __popc(bits & below);
+                    const int j = j0 + i;
+                    const float* src = bs + (long long)j * d;
+                    if (kMode == 0) {
+                        float4* dst = reinterpret_cast<float4*>(cb) + pos;
+                        cp_async4(&dst->x, src);
+                        if (D > 1) cp_async4(&dst->y, src + 1);
+                        if (D > 2) cp_async4(&dst->z, src + 2);
+                        dst->w = __int_as_float(j);
+                    } else {
+                        float* pl = reinterpret_cast<float*>(cb);
+                        for (int kk = 0; kk < d; ++kk) cp_async4(pl + kk * kCap + pos, src + kk);
+                        reinterpret_cast<int*>(pl)[d * kCap + pos] = j;
+                    }
+                }
+                n += __popc(bits);
+            }
+        }
+        __syncwarp();               // every lane has read the stage
+        if (!stop && issued < nq) stage(issued++);
+    }
+    if (n > 0 && !stop) scan();
+
+    // the phases merge (d2, index) lexicographically, so the lowest index
+    // wins a tie; counts add
+    int tot[2];
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+        tot[qq] = cnt[qq];
+        if (!two && qq == 1) break;
+        for (int o = span; o < 32; o <<= 1) {
+            if (kMin) {
+                const float ob = __shfl_xor_sync(0xffffffffu, best[qq], o);
+                const int oa = __shfl_xor_sync(0xffffffffu, arg[qq], o);
+                if (ob < best[qq] || (ob == best[qq] && oa < arg[qq])) {
+                    best[qq] = ob;
+                    arg[qq] = oa;
+                }
+            } else {
+                tot[qq] += __shfl_xor_sync(0xffffffffu, tot[qq], o);
+            }
+        }
+    }
+    if (splits == 1) {
+        if (k.rows > 0) {
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq) {
+                if (phase != 0 || !live[qq]) continue;
+                const int row = k.row0 + rowq[qq];
+                if (kMin) {
+                    p.out_min[row] = best[qq];
+                    // no valid candidate (or only infinitely far ones)
+                    p.out_arg[row] = best[qq] == CUDART_INF_F ? -1 : arg[qq];
+                } else {
+                    p.out_cnt[row] = tot[qq];
+                }
+            }
+            if (!kMin) {            // rows that valid_a masks: count 0
+                if (lane < k.rows && !(lo >> lane & 1u)) p.out_cnt[k.row0 + lane] = 0;
+                if (lane + 32 < k.rows && !(hi >> lane & 1u))
+                    p.out_cnt[k.row0 + lane + 32] = 0;
+            }
+        }
+        return;
+    }
+    // a split slot (at most 32 rows, one a lane slot): each warp leaves its
+    // partial result per row in its shared memory, and after the block's
+    // one barrier warp 0 merges them in split order
+    float* pb = reinterpret_cast<float*>(wsm + ws.part_off);
+    int* pa = reinterpret_cast<int*>(pb + 32);
+    pb[lane] = kMin ? CUDART_INF_F : __int_as_float(0);
+    pa[lane] = kNone;
+    __syncwarp();
+    if (phase == 0 && live[0]) {
+        pb[rowq[0]] = kMin ? best[0] : __int_as_float(tot[0]);
+        pa[rowq[0]] = arg[0];
+    }
+    __syncthreads();
+    if (warp == 0 && lane < k.rows) {
+        float m = CUDART_INF_F;
+        int am = kNone, c = 0;
+        for (int w = 0; w < splits; ++w) {
+            const float* ob = reinterpret_cast<const float*>(smem + (size_t)w * ws.total +
+                                                             ws.part_off);
+            const float b = ob[lane];
+            const int a = reinterpret_cast<const int*>(ob + 32)[lane];
+            if (kMin) {
+                if (b < m || (b == m && a < am)) {
+                    m = b;
+                    am = a;
+                }
+            } else {
+                c += __float_as_int(b);
+            }
+        }
+        const int row = k.row0 + lane;
+        if (kMin) {
+            p.out_min[row] = m;
+            p.out_arg[row] = m == CUDART_INF_F ? -1 : am;
+        } else {
+            p.out_cnt[row] = c;
+        }
+    }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (a call only above
+// the default 48 KB, so the usual launch costs no attribute call).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+
+// Warps per block at feature dim d: kWarpsPerBlock, fewer where their
+// shared memory would not fit, 0 where one warp's does not.
+int warps_per_block(int d) {
+    const size_t per_warp = (size_t)warp_smem(d).total;
+    int wpb = kWarpsPerBlock;
+    while (wpb > 0 && wpb * per_warp > kMaxSmem) --wpb;
+    return wpb;
+}
+
+// A warp per task; a slot of at most 32 rows whose candidates span more
+// than one chunk is split over up to kWarpsPerBlock warps of one block.
+template <bool kMin, int D>
+cudaError_t launch_dist(const DistArgs& p, cudaStream_t stream) {
+    auto kernel = dist_kernel<kMin, D>;
+    const int wpb = warps_per_block(p.d);
+    if (wpb == 0) return cudaErrorInvalidValue;
+    const size_t per_warp = (size_t)warp_smem(p.d).total;
+    const cudaError_t err = allow_smem(kernel, wpb * per_warp);
+    if (err != cudaSuccess) return err;
+    const int nch = (p.C + kChunk - 1) / kChunk;
+    const int splits = p.P <= 32 ? max(1, min(wpb, nch)) : 1;
+    const int group_rows = p.P < kGroup ? p.P : kGroup;
+    const long long tasks = (long long)p.B * ((p.P + group_rows - 1) / group_rows);
+    const int warps = splits > 1 ? splits : wpb;
+    const long long grid = splits > 1 ? p.B : (tasks + wpb - 1) / wpb;
+    kernel<<<(unsigned)grid, warps * 32, warps * per_warp, stream>>>(p, splits);
+    return cudaGetLastError();
+}
+
+template <bool kMin>
+cudaError_t dispatch_dist(const DistArgs& p, cudaStream_t s) {
+    switch (p.d) {
+        case 1: return launch_dist<kMin, 1>(p, s);
+        case 2: return launch_dist<kMin, 2>(p, s);
+        case 3: return launch_dist<kMin, 3>(p, s);
+        case 4: return launch_dist<kMin, 4>(p, s);
+        case 5: return launch_dist<kMin, 5>(p, s);
+        default: return launch_dist<kMin, 0>(p, s);
     }
 }
 
@@ -423,27 +840,12 @@ row_min2_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
 }
 
-size_t count_smem(int P, int d) {
-    return (size_t)d * kTile * 4 + (size_t)P * 4 + kWarps * 4 + kTile;
-}
-
-size_t min_smem(int P, int d) {
-    return (size_t)d * kTile * 4 + (size_t)P * 8 + kWarps * 4 + kTile;
-}
-
 size_t band_smem(int P, int d) {
     return (size_t)d * kTile * 4 + (size_t)P * 8 + kWarps * 4 + kTile;
 }
 
 size_t min2_smem(int P, int d) {
     return (size_t)d * kTile * 4 + (size_t)P * 12 + kWarps * 4 + kTile;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
 }
 
 }  // namespace
@@ -469,19 +871,10 @@ extern "C" int grit_eps_count_batch(const void* a, const void* b, const void* va
                                     long long vb_stride, float eps2, int stop_at,
                                     void* stream) {
     if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    size_t smem = count_smem(P, d);
-    cudaError_t err = cudaSuccess;
-#define CALL(DD)                                                                         \
-    err = allow_smem(eps_count_kernel<DD>, smem);                                        \
-    if (err == cudaSuccess)                                                              \
-        eps_count_kernel<DD><<<B, kThreads, smem, (cudaStream_t)stream>>>(               \
-            (const float*)a, (const float*)b, (const uint8_t*)valid_b,                   \
-            (const uint8_t*)valid_a, (int*)out, P, rows_total, C, d, b_stride,           \
-            vb_stride, eps2, stop_at)
-    DISPATCH_D(d, CALL)
-#undef CALL
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    const DistArgs p{(const float*)a, (const float*)b, (const uint8_t*)valid_b,
+                     (const uint8_t*)valid_a, (int*)out, nullptr, nullptr,
+                     B, P, rows_total, C, d, b_stride, vb_stride, eps2, stop_at};
+    return (int)dispatch_dist<false>(p, (cudaStream_t)stream);
 }
 
 // The guard-band twins take dense batches: slot g reads its P rows at
@@ -530,16 +923,15 @@ extern "C" int grit_row_min_batch(const void* a, const void* b, const void* vali
                                   int rows_total, int C, int d, long long b_stride,
                                   long long vb_stride, void* stream) {
     if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    size_t smem = min_smem(P, d);
-    cudaError_t err = cudaSuccess;
-#define CALL(DD)                                                                         \
-    err = allow_smem(row_min_kernel<DD>, smem);                                          \
-    if (err == cudaSuccess)                                                              \
-        row_min_kernel<DD><<<B, kThreads, smem, (cudaStream_t)stream>>>(                 \
-            (const float*)a, (const float*)b, (const uint8_t*)valid_b,                   \
-            (float*)out_min, (int*)out_arg, P, rows_total, C, d, b_stride, vb_stride)
-    DISPATCH_D(d, CALL)
-#undef CALL
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    const DistArgs p{(const float*)a, (const float*)b, (const uint8_t*)valid_b, nullptr,
+                     nullptr, (float*)out_min, (int*)out_arg,
+                     B, P, rows_total, C, d, b_stride, vb_stride, 0.0f, 0};
+    return (int)dispatch_dist<true>(p, (cudaStream_t)stream);
+}
+
+// The staging route of eps_count_batch / row_min_batch at feature dim d:
+// 0 packed float4 candidates (d <= 3), 1 coordinate planes with the rows
+// in registers (d <= 8), 2 planes with the rows read from device memory.
+extern "C" int grit_pairwise_route(int d) {
+    return d <= 3 ? 0 : (d <= kMaxRegD ? 1 : 2);
 }

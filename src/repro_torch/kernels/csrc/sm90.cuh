@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors, the wgmma shapes the
-// flash-attention kernel issues and two special-function-unit intrinsics.
+// bulk copies, TMA tensor loads, wgmma shared-memory descriptors, the wgmma
+// shapes the flash-attention kernel issues and two special-function-unit
+// intrinsics.
 // Everything is inline PTX; nothing here allocates or launches.
 #pragma once
 
@@ -49,6 +50,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         if (done) return;
         if (tries == (1u << 26)) __trap();
     }
+}
+
+// ---- bulk copies ----------------------------------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from device
+// memory into shared memory; completion is reported to `bar` as
+// transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
 }
 
 // ---- TMA --------------------------------------------------------------------

@@ -283,26 +283,45 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _LIB: Optional[ctypes.CDLL] = None
 
 
+def declare_distance(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``grit_eps_count_batch`` and
+    ``grit_row_min_batch`` on a loaded library (this one's, or another
+    version of ``csrc/pairwise.cu`` built to be timed beside it)."""
+    lib.grit_eps_count_batch.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _F, _I, _VP]
+    lib.grit_eps_count_batch.restype = _I
+    lib.grit_row_min_batch.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _VP]
+    lib.grit_row_min_batch.restype = _I
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     """The kernel library with its C signatures declared (built and
     loaded at the first launch, never at import)."""
     global _LIB
     if _LIB is None:
-        lib = build.load("pairwise")
-        lib.grit_eps_count_batch.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _F, _I, _VP]
-        lib.grit_eps_count_batch.restype = _I
-        lib.grit_row_min_batch.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _VP]
-        lib.grit_row_min_batch.restype = _I
+        lib = declare_distance(build.load("pairwise"))
         lib.grit_eps_count_band_batch.argtypes = [
             _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP]
         lib.grit_eps_count_band_batch.restype = _I
         lib.grit_row_min2_batch.argtypes = [
             _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
         lib.grit_row_min2_batch.restype = _I
+        lib.grit_pairwise_route.argtypes = [_I]
+        lib.grit_pairwise_route.restype = _I
         _LIB = lib
     return _LIB
+
+
+def pairwise_route(d: int) -> str:
+    """How the built ``eps_count[_batch]`` / ``row_min[_batch]`` kernel
+    stages candidates at feature dim ``d``, as its library reports it:
+    ``"packed"`` (float4 {x, y, z, index}, d <= 3), ``"planes"`` (one
+    plane per coordinate, rows in registers, d <= 8) or ``"wide"``
+    (planes, rows read from device memory).  Builds and loads the
+    library."""
+    return ("packed", "planes", "wide")[_lib().grit_pairwise_route(int(d))]
 
 
 def _flash_lib() -> ctypes.CDLL:

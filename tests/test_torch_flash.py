@@ -225,15 +225,35 @@ def test_cuda_flash_kernel_matches_its_plain_version_on_the_card():
 
 def test_each_source_gets_its_own_flags_in_its_hash():
     """``-fmad=false`` (exact distance terms) applies to the distance
-    kernels only; the library name hashes the source's own flags."""
+    kernels only; both sources keep ptxas's report (``-Xptxas -v``) of
+    registers and spills; the library name hashes the source's own
+    flags."""
     from repro_torch.kernels import build
     assert build.sources() == ["flash_attention", "pairwise"]
     assert "-fmad=false" in build.flags("pairwise")
     assert "-fmad=false" not in build.flags("flash_attention")
     for name in build.sources():
         assert "arch=compute_90a,code=sm_90a" in build.flags(name)
+        flags = build.flags(name)
+        assert ("-Xptxas", "-v") in zip(flags, flags[1:])
         _, lib = build._target(name)
         assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
+
+
+def test_another_version_of_a_source_builds_under_its_own_name(tmp_path):
+    """``build.load_source`` names a second build of a kernel source (the
+    parent's ``pairwise.cu``, timed beside the current one) by its own
+    name, its text and the flags of the source it stands in for."""
+    from repro_torch.kernels import build
+    other = tmp_path / "pairwise_old.cu"
+    other.write_text('#include <stdint.h>\nextern "C" int f() { return 0; }\n')
+    src, lib = build._target("pairwise_baseline", other, "pairwise")
+    assert src == other and lib.name.startswith("libpairwise_baseline-")
+    assert lib != build._target("pairwise")[1]
+    same = build._target("pairwise_baseline", other, "pairwise")[1]
+    assert same == lib
+    assert build._target("pairwise_baseline", other, "flash_attention")[1] \
+        != lib
 
 
 def test_an_edited_header_changes_the_library_name(tmp_path, monkeypatch):
