@@ -25,15 +25,17 @@ result line) as soon as a phase fails:
            ones, rows saturating stop_at at different candidates, ties
            across phase boundaries, ragged unbatched slots, d = 7);
            eager times (CUDA events around wrapper calls) beside the
-           least time the card could take for the same work and, for the
+           least time the card could take for the same work (with
+           stop_at, the work the exit leaves) and, for the
            distance kernels, device times of CUDA-graph replays over
            copies of the operands that exceed the L2 cache
            (``graph_ms``) and an instruction-count estimate of the
            issue-rate floor of their exact arithmetic (``floor_ms``); the
-           staging route of each case and the distance kernels'
-           registers and spills; with ``--baseline-pairwise PATH`` that
-           build of ``pairwise.cu`` timed both ways beside this one, in
-           turns (``parent_ms``, ``parent_graph_ms``)
+           staging route of each case and the registers and spills of
+           every kind of the distance kernel (it fails on a spill at
+           d = 3); with ``--baseline-pairwise PATH`` that build of
+           ``pairwise.cu`` timed both ways beside this one, in turns
+           (``parent_ms``, ``parent_graph_ms``)
   check    (a) engine "device" (plain plane) gives equal labels and core
            flags; (b) core flags and the nearest-core rule recomputed in
            float64 for sampled points against all points; (c) the same
@@ -48,11 +50,20 @@ result line) as soon as a phase fails:
            (equal after every step) and a fifth with the resident stages'
            gates at 0, each stage's flat-gather and host-twin runs
            counted, and a snapshot round trip
-  guard_band  the two guard-band kernels against their plain versions on
-           the largest kernel-mode predict call, on the fit's captured
-           ``eps_count_batch`` inputs with the served index's band
-           thresholds (with and without the per-row MinPts bar), on
-           integer lattices (equal) and on random reals
+  guard_band  the two guard-band kernels (the same warp-per-task kernel
+           as the distance kernels, kinds band and min2) against their
+           plain versions on the largest kernel-mode predict call, on the
+           fit's captured ``eps_count_batch`` inputs with the served
+           index's band thresholds (with and without the per-row MinPts
+           bar), on integer lattices and on the edge shapes of phase
+           ``kernels`` with and without bars (equal), and on random
+           reals (a row whose bar is <= 0 must count 0); at the predict
+           call and at every fit width (with and without the bar)
+           ``ms``, ``graph_ms`` and ``floor_ms`` as in phase
+           ``kernels``, bound and floor with the bar counting the (row,
+           candidate) pairs each row needs to reach it (``pairs``), and
+           with ``--baseline-pairwise`` that build's ``parent_ms`` /
+           ``parent_graph_ms``
   flash    the flash-attention kernel against its plain version (float32
            within 2e-4; bfloat16 within 2^-7·|want| + 1e-4 elementwise,
            one bf16 ulp of the output; both with a mean error under 1e-3
@@ -193,13 +204,16 @@ def graph_ms(fns, reps: int = 20, replays: int = 3) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def distance_call(lib, name, a, b, vb, va=None, eps=None, stop_at=None):
-    """``fn()`` that launches ``lib``'s C entry of a distance kernel
-    (``eps_count_batch`` or ``row_min_batch``) on these operands into
-    outputs allocated once: the same launch as the wrapper's, without
-    its host-side checks, so that two builds of ``pairwise.cu`` are timed
-    alike.  2-d operands (a [M, d], b [N, d]) take the unbatched
-    functions' launch: slots of ``ROWS_PER_SLOT`` rows sharing b."""
+def distance_call(lib, name, a, b, vb, *rest):
+    """``fn()`` that launches ``lib``'s C entry of a distance kernel on
+    these operands into outputs allocated once: the same launch as the
+    wrapper's, without its host-side checks, so that two builds of
+    ``pairwise.cu`` are timed alike.  ``rest`` holds the kernel's own
+    operands: ``eps_count_batch`` (valid_a, eps, stop_at),
+    ``eps_count_band_batch`` (stop_row, eps_lo, eps_hi), none for
+    ``row_min_batch`` and ``row_min2_batch``.  2-d operands (a [M, d],
+    b [N, d]) take the unbatched functions' launch: slots of
+    ``ROWS_PER_SLOT`` rows sharing b."""
     from repro_torch.kernels.ops import ROWS_PER_SLOT, _eps2
     if a.dim() == 2:
         M, d = a.shape
@@ -212,42 +226,53 @@ def distance_call(lib, name, a, b, vb, va=None, eps=None, stop_at=None):
         C = b.shape[1]
         rows, b_stride, vb_stride = B * P, C * d, C
     vbu = vb.view(torch.uint8)
-    vau = None if va is None else va.view(torch.uint8)
-    if name == "eps_count_batch":
-        out = torch.empty((rows,), dtype=torch.int32, device=a.device)
-        eps2 = _eps2(eps)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    new = lambda dtype: torch.empty((rows,), dtype=dtype, device=a.device)
 
+    def checked(launch):
         def fn():
-            err = lib.grit_eps_count_batch(
-                a.data_ptr(), b.data_ptr(), vbu.data_ptr(),
-                None if vau is None else vau.data_ptr(), out.data_ptr(), B, P,
-                rows, C, d, b_stride, vb_stride, eps2,
-                0 if stop_at is None else int(stop_at),
-                torch.cuda.current_stream().cuda_stream)
+            err = launch()
             require(err == 0, f"{name}: launch failed ({err})")
         return fn
-    mins = torch.empty((rows,), dtype=torch.float32, device=a.device)
-    args = torch.empty((rows,), dtype=torch.int32, device=a.device)
 
-    def fn():
-        err = lib.grit_row_min_batch(
+    if name == "eps_count_batch":
+        va, eps, stop_at = rest
+        vau = None if va is None else va.view(torch.uint8)
+        out, eps2 = new(torch.int32), _eps2(eps)
+        return checked(lambda: lib.grit_eps_count_batch(
+            a.data_ptr(), b.data_ptr(), vbu.data_ptr(), ptr(vau),
+            out.data_ptr(), B, P, rows, C, d, b_stride, vb_stride, eps2,
+            0 if stop_at is None else int(stop_at), stream()))
+    if name == "eps_count_band_batch":
+        stop_row, eps_lo, eps_hi = rest
+        lo, hi = new(torch.int32), new(torch.int32)
+        lo2, hi2 = _eps2(eps_lo), _eps2(eps_hi)
+        return checked(lambda: lib.grit_eps_count_band_batch(
+            a.data_ptr(), b.data_ptr(), vbu.data_ptr(), ptr(stop_row),
+            lo.data_ptr(), hi.data_ptr(), B, P, C, d, lo2, hi2, stream()))
+    mins, args = new(torch.float32), new(torch.int32)
+    if name == "row_min2_batch":
+        mins2 = new(torch.float32)
+        return checked(lambda: lib.grit_row_min2_batch(
             a.data_ptr(), b.data_ptr(), vbu.data_ptr(), mins.data_ptr(),
-            args.data_ptr(), B, P, rows, C, d, b_stride, vb_stride,
-            torch.cuda.current_stream().cuda_stream)
-        require(err == 0, f"{name}: launch failed ({err})")
-    return fn
+            mins2.data_ptr(), args.data_ptr(), B, P, C, d, stream()))
+    return checked(lambda: lib.grit_row_min_batch(
+        a.data_ptr(), b.data_ptr(), vbu.data_ptr(), mins.data_ptr(),
+        args.data_ptr(), B, P, rows, C, d, b_stride, vb_stride, stream()))
 
 
 def rotation(args):
     """Copies of a distance call's tensor operands (scalars shared) that
     together touch three times the card's L2 cache, so that launches
     taking them in turn read device memory as the main path does, not the
-    previous launch's bytes from L2.  Touched bytes: the rows, the masks
-    and the coordinates of the valid candidates."""
+    previous launch's bytes from L2.  Touched bytes: every tensor operand
+    but the candidates (rows, masks, bars), and the coordinates of the
+    valid candidates."""
     a, b, vb = args[:3]
-    va = args[3] if len(args) > 3 else None
     d = a.shape[-1]
-    touched = (a.numel() * 4 + vb.numel() + (0 if va is None else va.numel())
+    touched = (sum(x.numel() * x.element_size() for x in args
+                   if isinstance(x, torch.Tensor) and x is not b)
                + 4 * d * int(vb.sum()))
     k = max(1, min(16, -(-3 * L2_BYTES // max(touched, 1))))
     clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
@@ -290,37 +315,47 @@ def time_distance(lib, baseline, name, args, wrapper):
     return {k: float(np.mean(v)) for k, v in t.items()}
 
 
+# instructions of a (row, candidate) pair's decision, per kernel kind
+DECISION_INSTR = {"eps_count": 2, "row_min": 3, "eps_count_band": 4,
+                  "row_min2": 5}
+
+
 def floor_ms(name: str, pairs: float, d: int, P: int) -> float:
     """An estimate, from an instruction count, of the issue-rate floor of
     the exact distance form: ``pairs`` (live row, valid candidate) pairs
     at 3d - 1 f32 instructions each (d subtractions, d multiplies, d - 1
     adds: no fused multiply-add, so each term is rounded as in the plain
-    version) plus the decision (row_min: a compare and two selects, 3;
-    eps_count: a compare and an add, 2) plus a share of the broadcast
-    candidate load (1/2 where a lane holds two of a slot's P > 32 rows,
-    else 1): 11.5 instructions a pair for row_min_batch at d = 3, over
-    ``PEAK_ISSUE_S`` lane-instructions a second, which assumes the boost
-    clock (the SM clock under load is not read)."""
-    per_pair = (3 * d - 1 + (3 if name.startswith("row_min") else 2)
+    version) plus the decision (``DECISION_INSTR``: eps_count a hit test
+    and its add, eps_count_band two of each, row_min a compare and two
+    selects, row_min2 those and a min and a max) plus a share of the
+    broadcast candidate load (1/2 where a lane holds two of a slot's
+    P > 32 rows, else 1): 11.5 instructions a pair for row_min_batch at
+    d = 3, over ``PEAK_ISSUE_S`` lane-instructions a second, which
+    assumes the boost clock (the SM clock under load is not read)."""
+    per_pair = (3 * d - 1 + DECISION_INSTR[name.removesuffix("_batch")]
                 + (0.5 if P > 32 else 1.0))
     return pairs * per_pair / PEAK_ISSUE_S * 1e3
 
 
+# the kinds of ``dist_kernel<K, D>`` in the order of ``pairwise.cu``'s
+# ``enum Kind``
+PAIRWISE_KINDS = ("eps_count", "row_min", "eps_count_band", "row_min2")
+
+
 def pairwise_build_report():
-    """``eps_count_batch`` / ``row_min_batch`` as built: per kernel
-    (``dist_kernel<row_min, D>``, D = 0 the generic d > 5 one) its
-    registers, stack and spill bytes from the ptxas report that the build
-    keeps beside the library."""
+    """The distance kernels as built: per instantiation of
+    ``dist_kernel<K, D>`` (kind K of ``PAIRWISE_KINDS``, D = 0 the
+    generic d > 5 one) its registers, stack and spill bytes from the
+    ptxas report that the build keeps beside the library."""
     from repro_torch.kernels import build
     rep = {}
     lines = build.log_path("pairwise").read_text().splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*dist_kernelILb(\d)ELi(\d)E",
+        m = re.search(r"Compiling entry function '\S*dist_kernelILi(\d)ELi(\d)E",
                       line)
         if not m:
             continue
-        key = (("row_min" if m.group(1) == "1" else "eps_count")
-               + f"_d{m.group(2)}")
+        key = f"{PAIRWISE_KINDS[int(m.group(1))]}_d{m.group(2)}"
         row = {}
         for nxt in lines[i + 1:i + 4]:
             s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -333,12 +368,12 @@ def pairwise_build_report():
             if r:
                 row["registers"] = int(r.group(1))
         rep[key] = row
-    for key in ("row_min_d3", "eps_count_d3"):
+    for key in (f"{kind}_d3" for kind in PAIRWISE_KINDS):
         require(key in rep and "registers" in rep[key],
                 f"no ptxas report of {key} in the build log")
         require(rep[key]["spill_store_bytes"] == 0
                 and rep[key]["spill_load_bytes"] == 0,
-                f"the main path's {key} kernel spills registers: {rep[key]}")
+                f"the d = 3 {key} kernel spills registers: {rep[key]}")
     return rep
 
 
@@ -369,6 +404,41 @@ def _needed_work(a_rows_live, n_valid, B, P, C, d, with_va):
     nbytes = (4.0 * d * float(a_rows_live.sum()) + 4.0 * d * float(n_valid.sum())
               + B * C + (B * P if with_va else 0) + 4.0 * B * P)
     return nbytes, 3.0 * d * pairs
+
+
+def _work_to_bars(a, b, vb, eps, bar, row_bytes, n_out, slots=256):
+    """(bound ms, by, pairs) of a count kernel that ends a row's scan at
+    a per-row bar on its count at ``eps`` (``eps_count_batch``'s stop_at
+    on the rows that valid_a marks, the band's stop_row): the work these
+    inputs need.  A row needs its valid candidates in ascending order up
+    to the one at which its count reaches its bar (all of them if it
+    never does, none if its bar is <= 0); a slot needs the mask bytes and
+    the candidates' coordinates up to the last candidate any of its rows
+    needs; ``row_bytes`` a row are read for every row (valid_a or the
+    bar), the coordinates of the rows with a bar above 0, and ``n_out``
+    int32 outputs are written a row."""
+    from repro_torch.kernels.ops import _eps2, sq_dists_direct
+    B, P, d = a.shape
+    C = b.shape[1]
+    e2 = _eps2(eps)
+    pairs = cand = mask = 0.0
+    for s in range(0, B, slots):
+        vs = vb[s:s + slots]
+        bs = bar[s:s + slots].to(torch.int64)
+        hit = (sq_dists_direct(a[s:s + slots], b[s:s + slots]) <= e2) \
+            & vs[:, None, :]
+        reach = hit.cumsum(-1) >= bs[..., None]
+        last = torch.where(reach.any(-1), reach.int().argmax(-1), C - 1)
+        last = torch.where(bs > 0, last, -1)         # no bar: nothing
+        vcum = torch.nn.functional.pad(vs.to(torch.int64).cumsum(-1), (1, 0))
+        pairs += float(vcum.gather(1, last + 1).sum().item())
+        span = last.max(dim=1).values + 1            # positions per slot
+        cand += float(vcum.gather(1, span[:, None]).sum().item())
+        mask += float(span.sum().item())
+    rows = float((bar > 0).sum().item())
+    nbytes = 4.0 * d * rows + 4.0 * d * cand + mask \
+        + (row_bytes + 4.0 * n_out) * B * P
+    return (*_bound(nbytes, 3.0 * d * pairs), pairs)
 
 
 def _bound(nbytes: float, ops: float):
@@ -547,6 +617,21 @@ def kernels_phase(captured, dev, baseline=None):
     require(float(m[0, 1]) == 36.0 and int(i[0, 1]) == 521,
             "row_min_batch misses the candidate at exactly eps")
     cases += 3
+    # thresholds that the kernels' integer hit test takes only as the C
+    # entries map them: a NaN eps counts nothing, eps 0 the d2 == 0 hits
+    from repro_torch.kernels.ops import eps_count_band_batch_plain
+    nan = float("nan")
+    require(torch.equal(ops.eps_count_batch(al[None], bl[None], nan),
+                        eps_count_batch_plain(al[None], bl[None], nan))
+            and torch.equal(ops.eps_count_batch(al[None], bl[None], 0.0),
+                            eps_count_batch_plain(al[None], bl[None], 0.0)),
+            "eps_count_batch differs from its plain version at eps NaN or 0")
+    got = ops.eps_count_band_batch(al[None], bl[None], nan, 0.0)
+    want = eps_count_band_batch_plain(al[None], bl[None], nan, 0.0)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "eps_count_band_batch differs from its plain version at "
+            "thresholds NaN and 0")
+    cases += 3
     # 3. random reals: d2 within rtol 1e-6; count differences only on
     # rows that hold a candidate within that band of eps^2
     band_rows = 0
@@ -593,9 +678,13 @@ def kernels_phase(captured, dev, baseline=None):
         diff = compare_eps_count(ops, a, b, eps, vb, va, stop_at, True)
         require(diff == 0, f"eps_count_batch differs from its plain version "
                 f"on the main path's inputs at width {C}: {diff}")
-        live, valid = va.sum(1).double(), vb.sum(1).double()
-        nbytes, nops = _needed_work(live, valid, B, P, C, d, True)
-        bound, by = _bound(nbytes, nops)
+        if stop_at:     # the work the exit at stop_at leaves
+            bound, by, pairs = _work_to_bars(
+                a, b, vb, eps, torch.where(va, int(stop_at), 0), 1, 1)
+        else:
+            live, valid = va.sum(1).double(), vb.sum(1).double()
+            bound, by = _bound(*_needed_work(live, valid, B, P, C, d, True))
+            pairs = float((live * valid).sum())
         tiers["eps_count_batch"].append(timed(
             "eps_count_batch", (a, b, vb, va, eps, stop_at),
             lambda: ops.eps_count_batch(a, b, eps, vb, va, stop_at=stop_at),
@@ -603,8 +692,7 @@ def kernels_phase(captured, dev, baseline=None):
             dict(name="eps_count_batch", shape=[B, P, C, d], calls=calls,
                  kernel_route=ops.pairwise_route(d), max_abs_err=float(diff),
                  bound_ms=bound, bound_by=by,
-                 floor_ms=floor_ms("eps_count_batch",
-                                   float((live * valid).sum()), d, P))))
+                 floor_ms=floor_ms("eps_count_batch", pairs, d, P))))
     for C in sorted(captured["row_min_batch"]):
         (a, b, vb), calls = captured["row_min_batch"][C]
         B, P, d = a.shape
@@ -651,7 +739,7 @@ def kernels_phase(captured, dev, baseline=None):
     rows.append(dict(
         name="eps_count", shape=[M, N, d], max_abs_err=float(diff),
         **time_distance(lib, baseline, "eps_count_batch",
-                        (a, b, vb, None, eps),
+                        (a, b, vb, None, eps, None),
                         lambda: ops.eps_count(a, b, eps, vb)),
         plain_ms=cuda_ms(lambda: eps_count_batch_plain(a[None], b[None], eps,
                                                        vb[None]),
@@ -1038,15 +1126,18 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
 def compare_band(ops_mod, a, b, lo, hi, vb, stop):
     """Launch ``eps_count_band_batch``, hold it against the plain
     version's full counts: equal where the row's lo count is below its
-    bar (every row without a bar), never above elsewhere."""
+    bar (every row without a bar), 0 where the bar is <= 0 (an exempt
+    row), never above elsewhere."""
     from repro_torch.kernels.ops import eps_count_band_batch_plain
     glo, ghi = ops_mod.eps_count_band_batch(a, b, lo, hi, vb, stop)
     torch.cuda.synchronize()
     wlo, whi = eps_count_band_batch_plain(a, b, lo, hi, vb)
     done = torch.ones_like(glo, dtype=torch.bool) if stop is None \
         else glo < stop
+    exempt = torch.zeros_like(done) if stop is None else stop <= 0
     diff = max(int(((glo - wlo).abs() * done).max().item()),
-               int(((ghi - whi).abs() * done).max().item())) \
+               int(((ghi - whi).abs() * done).max().item()),
+               int(((glo.abs() + ghi.abs()) * exempt).max().item())) \
         if glo.numel() else 0
     over = bool((glo > wlo).any() or (ghi > whi).any())
     return diff, over
@@ -1070,14 +1161,27 @@ def compare_min2(ops_mod, a, b, vb):
     return err, rel_ok, int((gi != wi).sum().item()), inf_ok
 
 
-def _band_work(vb, B, P, C, d, n_out, extra_in=0.0):
+def _band_work(vb, B, P, C, d, n_out):
+    """(bound ms, by, pairs) of a guard-band call that scans every (row,
+    valid candidate) pair."""
     pairs = float(P) * float(vb.sum().item())
     nbytes = (4.0 * d * B * P + 4.0 * d * float(vb.sum().item()) + B * C
-              + 4.0 * n_out * B * P + extra_in)
-    return _bound(nbytes, 3.0 * d * pairs)
+              + 4.0 * n_out * B * P)
+    return (*_bound(nbytes, 3.0 * d * pairs), pairs)
 
 
-def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
+def edge_bars(va, seed, k=5):
+    """Per-row bars in [0, k] for the band kernel on an edge lattice, 0
+    (exempt) on the rows that ``va`` marks dead, as the fit's padded rows
+    are."""
+    rng = np.random.default_rng(seed)
+    bar = torch.as_tensor(rng.integers(0, k + 1, tuple(va.shape))
+                          .astype(np.int32)).to(va.device)
+    return torch.where(va, bar, 0).to(torch.int32).contiguous()
+
+
+def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev,
+                     baseline=None):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ops import (eps_count_band_batch_plain,
                                          row_min2_batch_plain)
@@ -1106,6 +1210,23 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
                     f"differs on lattice {(B, P, C, d)} dup={dup}: "
                     f"err={err} argmin={mism}")
             cases += 6
+    # 1b. the edge shapes of the warp-per-task design (50,000 slots, rows
+    # around the lane counts, dead slots between live ones, ties across
+    # phase and split boundaries, d = 7), with and without bars
+    for i, (B, P, C, d, dead, pairs) in enumerate(EDGE_SHAPES):
+        a, b, vb, va = lattice_inputs(B, P, C, d, 600 + i, dev, True, dead,
+                                      pairs)
+        for stop in (None, edge_bars(va, 700 + i),
+                     edge_bars(va, 800 + i, 1000)):
+            diff, over = compare_band(ops, a, b, 15.0, 17.0, vb, stop)
+            require(diff == 0 and not over, f"eps_count_band_batch differs "
+                    f"on edge lattice {(B, P, C, d)} (bars: "
+                    f"{stop is not None}): {diff}")
+        err, _, mism, inf_ok = compare_min2(ops, a, b, vb)
+        require(err == 0.0 and mism == 0 and inf_ok, f"row_min2_batch "
+                f"differs on edge lattice {(B, P, C, d)}: err={err} "
+                f"argmin={mism}")
+        cases += 4
     # 2. random reals: d2 within rtol 1e-6, counts equal outside the
     # rows with a candidate inside that band of either threshold
     band_rows = 0
@@ -1133,7 +1254,10 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
         cases += 2
 
     # 3. the largest kernel-mode predict call: both kernels, timed (the
-    # summary rows), the band at the served index's thresholds
+    # summary rows; ``time_distance``: ms eager, graph_ms device time over
+    # rotated copies, parent_* beside them when a baseline build is
+    # given), the band at the served index's thresholds
+    lib = ops._lib()
     a, b, vb = predict_call
     B, P, d = a.shape
     C = b.shape[1]
@@ -1141,29 +1265,36 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
     require(err == 0.0 and mism == 0 and inf_ok, f"row_min2_batch differs "
             f"from its plain version on the predict call: err={err} "
             f"argmin={mism}")
-    bound, by = _band_work(vb, B, P, C, d, 3)
+    bound, by, pairs = _band_work(vb, B, P, C, d, 3)
     rows = [dict(name="row_min2_batch", shape=[B, P, C, d],
-                 max_abs_err=float(err),
-                 ms=cuda_ms(lambda: ops.row_min2_batch(a, b, vb)),
+                 kernel_route=ops.pairwise_route(d), max_abs_err=float(err),
+                 **time_distance(lib, baseline, "row_min2_batch", (a, b, vb),
+                                 lambda: ops.row_min2_batch(a, b, vb)),
                  plain_ms=cuda_ms(lambda: row_min2_batch_plain(a, b, vb),
                                   reps=2, warmup=1),
-                 bound_ms=bound, bound_by=by)]
+                 bound_ms=bound, bound_by=by,
+                 floor_ms=floor_ms("row_min2_batch", pairs, d, P))]
     diff, over = compare_band(ops, a, b, eps_lo, eps_hi, vb, None)
     require(diff == 0 and not over, f"eps_count_band_batch differs from its "
             f"plain version on the predict call: {diff}")
-    bound, by = _band_work(vb, B, P, C, d, 2)
+    bound, by, pairs = _band_work(vb, B, P, C, d, 2)
     rows.append(dict(
         name="eps_count_band_batch", shape=[B, P, C, d],
-        max_abs_err=float(diff),
-        ms=cuda_ms(lambda: ops.eps_count_band_batch(a, b, eps_lo, eps_hi, vb)),
+        kernel_route=ops.pairwise_route(d), max_abs_err=float(diff),
+        **time_distance(lib, baseline, "eps_count_band_batch",
+                        (a, b, vb, None, eps_lo, eps_hi),
+                        lambda: ops.eps_count_band_batch(a, b, eps_lo,
+                                                         eps_hi, vb)),
         plain_ms=cuda_ms(lambda: eps_count_band_batch_plain(
             a, b, eps_lo, eps_hi, vb), reps=2, warmup=1),
-        bound_ms=bound, bound_by=by))
+        bound_ms=bound, bound_by=by,
+        floor_ms=floor_ms("eps_count_band_batch", pairs, d, P)))
     cases += 2
 
     # 4. the fit's captured eps_count_batch inputs at every width, band
     # thresholds of the served index, with the MinPts bar on live rows
-    # (0 on padded rows) and without a bar
+    # (0 on padded rows) and without a bar; timed as the predict call;
+    # with the bar, bound and floor count the pairs the bar leaves
     tiers = []
     for C in sorted(captured_fit):
         (a, b, vb, va, _, _), _ = captured_fit[C]
@@ -1174,16 +1305,20 @@ def guard_band_phase(captured_fit, predict_call, eps_lo, eps_hi, dev):
             require(diff == 0 and not over, f"eps_count_band_batch differs "
                     f"on the fit's inputs at width {C} (bar: "
                     f"{bar is not None}): {diff}")
-            bound, by = _band_work(vb, B, P, C, d, 2,
-                                   0.0 if bar is None else 4.0 * B * P)
+            bound, by, pairs = (_band_work(vb, B, P, C, d, 2) if bar is None
+                                else _work_to_bars(a, b, vb, eps_lo, bar, 4,
+                                                   2))
             tiers.append(dict(
-                shape=[B, P, C, d], stop_row=bar is not None,
+                shape=[B, P, C, d], stop_row=bar is not None, pairs=pairs,
                 max_abs_err=float(diff),
-                ms=cuda_ms(lambda: ops.eps_count_band_batch(
-                    a, b, eps_lo, eps_hi, vb, bar)),
+                **time_distance(lib, baseline, "eps_count_band_batch",
+                                (a, b, vb, bar, eps_lo, eps_hi),
+                                lambda: ops.eps_count_band_batch(
+                                    a, b, eps_lo, eps_hi, vb, bar)),
                 plain_ms=cuda_ms(lambda: eps_count_band_batch_plain(
                     a, b, eps_lo, eps_hi, vb), reps=2, warmup=1),
-                bound_ms=bound, bound_by=by))
+                bound_ms=bound, bound_by=by,
+                floor_ms=floor_ms("eps_count_band_batch", pairs, d, P)))
             cases += 1
     return rows, tiers, cases, band_rows
 
@@ -1761,15 +1896,18 @@ def main() -> int:
     _, lo2, hi2 = index.device_state.thresholds(index)
     eps_lo, eps_hi = math.sqrt(lo2), math.sqrt(hi2)
     band_rows_, band_tiers, band_cases, band_in = guard_band_phase(
-        captured["eps_count_batch"], predict_call, eps_lo, eps_hi, dev)
+        captured["eps_count_batch"], predict_call, eps_lo, eps_hi, dev,
+        baseline)
     captured.clear()
     emit("guard_band", comparisons=band_cases, rows_in_band=band_in,
          eps_lo=eps_lo, eps_hi=eps_hi,
          tolerance="integer outputs and argmins equal; min and runner-up "
                    "equal on lattices and on the predict call, rtol 1e-6 "
                    "on random reals",
-         shapes={r["name"]: r["shape"] for r in band_rows_},
-         fit_widths=band_tiers, script_s=time.perf_counter() - t_script)
+         predict_call=band_rows_, fit_widths=band_tiers,
+         floor_ms_is="an instruction-count estimate at the 1.98 GHz boost "
+                     "clock, not a measurement",
+         script_s=time.perf_counter() - t_script)
     after_band = dict(ops.LAUNCHES)
     del index, predict_call, band_tiers, pts, res, warm, staged, plain
     torch.cuda.empty_cache()

@@ -1,11 +1,26 @@
 // Batched pairwise-distance kernels for the DBSCAN distance plane (sm_90a).
 //
-//   eps_count_batch  replaces  repro/kernels/pairwise.py::eps_count_batch_pallas
-//                    (and, with a shared candidate set, ::eps_count_pallas)
-//   row_min_batch    replaces  repro/kernels/pairwise.py::row_min_batch_pallas
-//                    (and, with a shared candidate set, ::row_min_pallas)
+//   eps_count_batch       replaces  repro/kernels/pairwise.py::eps_count_batch_pallas
+//                         (and, with a shared candidate set, ::eps_count_pallas)
+//   row_min_batch         replaces  ::row_min_batch_pallas
+//                         (and, with a shared candidate set, ::row_min_pallas)
 //   eps_count_band_batch  replaces  ::eps_count_band_batch_pallas
 //   row_min2_batch        replaces  ::row_min2_batch_pallas
+//
+// All four are one kernel, dist_kernel<K, D>, whose kind K is what it keeps
+// per row:
+//   kCount  hits at d2 <= eps2; with stop_at > 0 the task ends once every
+//           live row has stop_at hits;
+//   kMin    the least d2 and its first index;
+//   kBand   hits at d2 <= eps2 and at d2 <= eps2_hi; with a stop_row, a
+//           per-row bar on the first count: a row whose bar is <= 0 is
+//           exempt, neither scanned nor counted (its counts are 0), and
+//           the task ends once every other row has reached its bar, so a
+//           row whose first count is below its bar has scanned every
+//           valid candidate;
+//   kMin2   the least d2, its first index and the runner-up, the second
+//           order statistic of the row's distance multiset (a duplicate of
+//           the minimum is the runner-up).
 //
 // Operands: a [B, P, d] f32 query rows, b [B, C, d] f32 candidates,
 // valid_b [B, C] u8 candidate mask, optional valid_a [B, P] u8 row mask.
@@ -25,19 +40,21 @@
 // cores (TF32 or bf16) the same form would change counts at exactly eps.
 //
 // What bounds it: the function must move 4*B*(P+C)*d + B*C + 4*B*P bytes
-// and does 3*d*B*P*C f32 operations, i.e. about 3*P/4 operations per byte
-// for C >> P: operation bound at the main path's P = MinPts-1 = 63 on
-// dense slots, byte bound (the masks) on sparse ones.  Exactness costs
-// issue slots: without fused multiply-adds a (row, candidate) pair of
-// row_min is 3d-1 arithmetic instructions, a compare and two selects
-// (11 at d = 3; eps_count 10), against the 3d "operations" of the bound.
+// (per output) and does 3*d*B*P*C f32 operations, i.e. about 3*P/4
+// operations per byte for C >> P: operation bound at the main path's
+// P = MinPts-1 = 63 on dense slots, byte bound (the masks) on sparse ones.
+// Exactness costs issue slots: without fused multiply-adds a (row,
+// candidate) pair is 3d-1 arithmetic instructions plus the kind's decision
+// (kCount a hit test and its add, see hit(); kBand two of each; kMin a
+// compare and two selects; kMin2 those and a min and a max), against the
+// 3d "operations" of the bound.
 //
-// eps_count_batch / row_min_batch: a warp per task, no block barrier in
-// its scan.  A task is one slot's rows (at most 64: a slot of more rows is
-// several tasks) against all of its candidates; a slot of at most 32 rows
-// whose candidates span several chunks is split instead over up to four
-// warps of one block, each taking a range of its chunks.  The grid has a
-// warp for every task (split), and the warps resident on an SM keep each
+// The schedule: a warp per task, no block barrier in its scan.  A task is
+// one slot's rows (at most 64: a slot of more rows is several tasks)
+// against all of its candidates; a slot of at most 32 rows whose
+// candidates span several chunks is split instead over up to four warps
+// of one block, each taking a range of its chunks.  The grid has a warp
+// for every task (split), and the warps resident on an SM keep each
 // other's bytes in flight.  Per warp:
 //   1. lane 0 puts the task's first kStages mask chunks of kChunk
 //      positions in flight by bulk copies (cp.async.bulk), each completing
@@ -47,106 +64,52 @@
 //      rows, else rows x phases;
 //   2. each chunk's valid candidates are compacted, in ascending index,
 //      32 positions a round with ballot + popc, and their coordinates
-//      gathered by cp.async into an item of kCap candidates (packed float4
-//      {x, y, z, index} for d <= 3, planes otherwise);
+//      gathered by cp.async into an item (packed float4 {x, y, z, index}
+//      of kCap candidates for d <= 3, planes of kCapPlanes otherwise);
+//      kCapStop for a task that may end early, whose gathers past the
+//      exit are wasted;
 //   3. when the next round would overflow the item, and at the end, the
-//      lanes scan it with the rows in registers (loaded at the first item,
-//      so a task without a valid candidate reads none): each candidate is
-//      one broadcast shared load for all of a lane's rows, with no mask
-//      test; lane phase f of a row takes the item's candidates f,
-//      f + phases, ... in ascending index with strict <.  eps_count checks
-//      every 32 candidates, across the warp, whether each live row has
-//      stop_at hits, and then ends the task.
-// At the end the phases merge (d2, index) lexicographically in a butterfly,
-// so the lowest index wins a tie; the warps of a split slot leave their
-// partial results in shared memory, and after the block's one barrier
-// warp 0 merges them the same way in split order (counts add).  Rows
-// masked by valid_a are neither scanned nor counted (their counts are 0).
-
-// The two guard-band twins keep the first design: one block per slot,
-// the slot's candidates staged tile by tile, rows dealt to warps and
-// candidates to lanes.  eps_count_band_batch keeps two counters (hits at
-// lo2 and at hi2) and stops a slot once every row's lo count has reached
-// its own stop_row bar (bar 0 exempts a row); row_min2_batch keeps a
-// (min, first index, runner-up) triple per lane and merges triples
-// lexicographically on (min, index) with
-// min2 = min(min2_a, min2_b, max(min_a, min_b)), so the runner-up is the
-// second order statistic of the row's distance multiset (a duplicate of
-// the minimum counts) whatever the lane layout.
+//      lanes scan it with the rows in registers, loaded at the first
+//      item, so a task without a valid candidate reads none:
+//      each candidate is one broadcast shared load for all of a lane's
+//      rows, with no mask test; lane phase f of a row takes the item's
+//      candidates f, f + phases, ... in ascending index with strict <.
+//      kCount and kBand check every 32 candidates, across the warp,
+//      whether each live row's first count has reached its bar, and then
+//      end the task (the stages already in flight are still waited for).
+// At the end the phases merge in a butterfly: counts add; (d2, index)
+// lexicographically, so the lowest index wins a tie; the runner-up is the
+// smaller of both runners-up and the larger of both minima.  The warps of
+// a split slot leave their partial results in shared memory, and after
+// the block's one barrier warp 0 merges them the same way in split order.
+// Rows that valid_a masks, and kBand's exempt rows, are neither scanned
+// nor counted (their counts are 0).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "sm90.cuh"
 
 namespace {
 
-// guard-band kernels: one block per slot
-constexpr int kThreads = 128;           // 4 warps per slot
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 512;              // candidates staged per step
+// What a kernel keeps per row (see the top of the file).
+enum Kind { kCount, kMin, kBand, kMin2 };
 
-// 1 + index of the slot's last valid candidate (0 when there is none):
-// the tile loop never scans the all-padding tail of the candidate axis.
-__device__ int last_valid(const uint8_t* __restrict__ vb, int C, int* s_red) {
-    int last = 0;
-    for (int j = threadIdx.x; j < C; j += kThreads)
-        if (vb[j]) last = j + 1;                // ascending j: keeps the max
-    for (int o = 16; o > 0; o >>= 1)
-        last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
-    if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = last;
-    __syncthreads();
-    int out = 0;
-    for (int w = 0; w < kWarps; ++w) out = max(out, s_red[w]);
-    __syncthreads();
-    return out;
-}
+__host__ __device__ constexpr bool keeps_min(int K) { return K == kMin || K == kMin2; }
 
-// Stage candidates [t0, t0+tn) of one slot, transposed to [d][kTile] so a
-// warp's strided read of one coordinate is conflict free.
-__device__ void stage_tile(const float* __restrict__ b, const uint8_t* __restrict__ vb,
-                           int t0, int tn, int d, float* s_b, uint8_t* s_v) {
-    const float* src = b + (size_t)t0 * d;
-    for (int i = threadIdx.x; i < tn * d; i += kThreads) {
-        int j = i / d, k = i - j * d;
-        s_b[k * kTile + j] = src[i];
-    }
-    for (int j = threadIdx.x; j < tn; j += kThreads) s_v[j] = vb[t0 + j];
-}
-
-template <int D>
-__device__ __forceinline__ float sq_dist(const float* __restrict__ av, const float* s_b,
-                                         int j, int d) {
-    float acc = 0.0f;
-    if (D > 0) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-            float t = av[k] - s_b[k * kTile + j];
-            acc = acc + t * t;
-        }
-    } else {
-        for (int k = 0; k < d; ++k) {
-            float t = av[k] - s_b[k * kTile + j];
-            acc = acc + t * t;
-        }
-    }
-    return acc;
-}
-
-constexpr int kMaxRegD = 8;   // feature dims held in registers per row
-
-// ---------------------------------------------------------------------------
-// eps_count / row_min: a warp per task (see the top of the file)
-// ---------------------------------------------------------------------------
-
+constexpr int kMaxRegD = 8;        // feature dims held in registers per row
 constexpr int kWarpsPerBlock = 4;
 constexpr int kChunk = 512;        // candidate positions per staged mask chunk
-constexpr int kCap = 128;          // compacted candidates per item
+constexpr int kCap = 256;          // compacted candidates per item, packed
+constexpr int kCapPlanes = 128;    // per item on the planes (d > 3)
+constexpr int kCapStop = 128;      // per item of a task that may end early
 constexpr int kGroup = 64;         // rows per task, two a lane
 constexpr int kStages = 4;         // mask chunks in flight per warp
 constexpr int kNone = 0x7fffffff;
 constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of one block
+static_assert(kCapStop <= kCapPlanes && kCapPlanes <= kCap, "an item fits its buffer");
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
@@ -154,7 +117,8 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 // chunks, each sized for the 16-byte-aligned span that holds its bytes;
 // the item of compacted candidates (float4 {x, y, z, index} for d <= 3,
 // else d coordinate planes and an index plane); the map from lane slots to
-// the task's live rows; the warp's partial results of a split slot.
+// the task's live rows; the warp's partial results of a split slot (three
+// words a row).
 struct WarpSmem {
     int stage_off, stage_bytes, comp_off, comp_bytes, rmap_off, part_off, total;
 };
@@ -164,10 +128,10 @@ __host__ __device__ constexpr WarpSmem warp_smem(int d) {
     w.stage_off = round16(kStages * 8);
     w.stage_bytes = kChunk + 32;
     w.comp_off = w.stage_off + kStages * w.stage_bytes;
-    w.comp_bytes = d <= 3 ? kCap * 16 : kCap * 4 * (d + 1);
+    w.comp_bytes = d <= 3 ? kCap * 16 : kCapPlanes * 4 * (d + 1);
     w.rmap_off = w.comp_off + w.comp_bytes;
     w.part_off = w.rmap_off + kGroup;
-    w.total = w.part_off + 32 * 8;
+    w.total = w.part_off + 32 * 12;
     return w;
 }
 
@@ -176,13 +140,16 @@ struct DistArgs {
     const float* b;
     const uint8_t* valid_b;
     const uint8_t* valid_a;
-    int* out_cnt;
-    float* out_min;
-    int* out_arg;
+    const int* stop_row;       // kBand: per-row bar on the first count, or null
+    int* out_cnt;              // kCount, kBand: hits at eps2
+    int* out_cnt2;             // kBand: hits at eps2_hi
+    float* out_min;            // kMin, kMin2
+    float* out_min2;           // kMin2: the runner-up
+    int* out_arg;              // kMin, kMin2
     int B, P, rows_total, C, d;
     long long b_stride, vb_stride;
-    float eps2;
-    int stop_at;
+    float eps2, eps2_hi;       // as hit_threshold() gives them
+    int stop_at;               // kCount
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -240,7 +207,7 @@ __device__ __forceinline__ float dist_planes(const float* av, const float* pl, i
 #pragma unroll
     for (int k = 1; k < (D > 0 ? D : kMaxRegD); ++k) {
         if (D > 0 || k < d) {
-            t = av[k] - pl[k * kCap + j];
+            t = av[k] - pl[k * kCapPlanes + j];
             acc = acc + t * t;
         }
     }
@@ -253,28 +220,96 @@ __device__ __forceinline__ float dist_wide(const float* arow, const float* pl, i
     float t = __ldg(arow) - pl[j];
     float acc = t * t;
     for (int k = 1; k < d; ++k) {
-        t = __ldg(arow + k) - pl[k * kCap + j];
+        t = __ldg(arow + k) - pl[k * kCapPlanes + j];
         acc = acc + t * t;
     }
     return acc;
 }
 
+// A lane's running results for its rows (at most two); each kind uses its
+// own fields: hits at eps2 and at eps2_hi, or the least d2, its index and
+// the runner-up.
+struct Acc {
+    int cnt[2], cnt2[2];
+    float best[2], second[2];
+    int arg[2];
+};
+
+// 1 when d2 <= t.  d2 is a sum of squares: a non-negative float, or the
+// card's NaN 0x7fffffff.  t comes from hit_threshold(): a non-negative
+// float other than -0, whose bit pattern orders as its value, or the
+// all-ones pattern, under which no d2 is a hit.  So the test is the sign
+// bit of one integer subtraction, which the add takes in the same
+// instruction: fewer issue slots than a float compare and a select.  It
+// equals the float compare d2 <= t for every such d2 and every threshold
+// hit_threshold() was given, NaN included.
+__device__ __forceinline__ int hit(float d2, float t) {
+    return (int)((__float_as_uint(d2) - __float_as_uint(t) - 1u) >> 31);
+}
+
+// Row q of the lane against candidate idx at d2.  A lane takes its
+// candidates in ascending idx, so strict < keeps the first minimum, and a
+// later duplicate of the minimum becomes the runner-up.
+template <int K>
+__device__ __forceinline__ void take(Acc& r, int q, float d2, int idx, float eps2,
+                                     float eps2_hi) {
+    if (K == kCount || K == kBand) r.cnt[q] += hit(d2, eps2);
+    if (K == kBand) r.cnt2[q] += hit(d2, eps2_hi);
+    if (K == kMin2) r.second[q] = fminf(r.second[q], fmaxf(r.best[q], d2));
+    if (keeps_min(K) && d2 < r.best[q]) {
+        r.best[q] = d2;
+        r.arg[q] = idx;
+    }
+}
+
+// Merge a partial result (ob, os, oa) of the same row into (best, second,
+// arg): (d2, index) lexicographically, and for kMin2 the runner-up is the
+// smaller of both runners-up and the larger of both minima, so it stays
+// the second order statistic whatever the lane layout or split.
+template <int K>
+__device__ __forceinline__ void merge_min(float& best, float& second, int& arg, float ob,
+                                          float os, int oa) {
+    if (K == kMin2) second = fminf(fminf(second, os), fmaxf(best, ob));
+    if (ob < best || (ob == best && oa < arg)) {
+        best = ob;
+        arg = oa;
+    }
+}
+
+// Whether, across the warp, every live row's first count (summed over the
+// row's phases, lanes `span` apart) has reached its bar.
+template <int R>
+__device__ __forceinline__ bool saturated(const Acc& r, const int (&need)[2],
+                                          const bool (&live)[2], int span) {
+    bool sat = true;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        int tot = r.cnt[q];
+        for (int o = span; o < 32; o <<= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+        sat = sat && (!live[q] || tot >= need[q]);
+    }
+    return __all_sync(0xffffffffu, sat);
+}
+
 // Scan compacted candidates [0, n) of one item: lane phase `phase` of
 // `ph` takes j = phase, phase + ph, ... in ascending order, for its R
-// rows.  Returns true when eps_count may stop the task (every live row
-// has stop_at hits).  kMode: 0 packed, 1 planes with the rows in
-// registers, 2 planes with the rows read from device memory.
-template <bool kMin, int D, int R, int kMode, int kRegD>
+// rows.  With `stopping` (kCount, kBand) the warp checks every 32
+// candidates whether each live row's first count has reached its bar
+// `need`, and returns true when the task may end.  kMode: 0 packed, 1
+// planes with the rows in registers, 2 planes with the rows read from
+// device memory.
+template <int K, int D, int R, int kMode, int kRegD>
 __device__ __forceinline__ bool scan_item(const unsigned char* cb, int n, int phase,
                                           int ph, int span, int d, float eps2,
-                                          int stop_at, float (&ax)[2][kRegD],
+                                          float eps2_hi, bool stopping,
+                                          const int (&need)[2], float (&ax)[2][kRegD],
                                           const float* (&arow)[2], const bool (&live)[2],
-                                          int (&cnt)[2], float (&best)[2],
-                                          int (&arg)[2]) {
+                                          Acc& acc) {
     const float4* cp = reinterpret_cast<const float4*>(cb);
     const float* pl = reinterpret_cast<const float*>(cb);
-    const int* pidx = reinterpret_cast<const int*>(cb) + d * kCap;
-    const int blk = (kMin || stop_at <= 0) ? n : 32;
+    const int* pidx = reinterpret_cast<const int*>(cb) + d * kCapPlanes;
+    stopping = stopping && !keeps_min(K);
+    const int blk = stopping ? 32 : n;
     for (int jb = 0; jb < n; jb += blk) {
         const int je = min(n, jb + blk);
 #pragma unroll 4
@@ -282,75 +317,69 @@ __device__ __forceinline__ bool scan_item(const unsigned char* cb, int n, int ph
             if (kMode == 0) {
                 const float4 c = cp[j];
 #pragma unroll
-                for (int q = 0; q < R; ++q) {
-                    const float d2 = dist_packed<D>(ax[q], c);
-                    if (kMin) {
-                        if (d2 < best[q]) {
-                            best[q] = d2;
-                            arg[q] = __float_as_int(c.w);
-                        }
-                    } else {
-                        cnt[q] += d2 <= eps2 ? 1 : 0;
-                    }
-                }
+                for (int q = 0; q < R; ++q)
+                    take<K>(acc, q, dist_packed<D>(ax[q], c), __float_as_int(c.w), eps2,
+                            eps2_hi);
             } else {
 #pragma unroll
                 for (int q = 0; q < R; ++q) {
                     const float d2 = kMode == 1 ? dist_planes<D>(ax[q], pl, j, d)
                                                 : dist_wide(arow[q], pl, j, d);
-                    if (kMin) {
-                        if (d2 < best[q]) {
-                            best[q] = d2;
-                            arg[q] = pidx[j];
-                        }
-                    } else {
-                        cnt[q] += d2 <= eps2 ? 1 : 0;
-                    }
+                    take<K>(acc, q, d2, pidx[j], eps2, eps2_hi);
                 }
             }
         }
-        if (!kMin && stop_at > 0) {
-            bool sat = true;
-#pragma unroll
-            for (int q = 0; q < R; ++q) {
-                int tot = cnt[q];
-                for (int o = span; o < 32; o <<= 1)
-                    tot += __shfl_xor_sync(0xffffffffu, tot, o);
-                sat = sat && (!live[q] || tot >= stop_at);
-            }
-            if (__all_sync(0xffffffffu, sat)) return true;
-        }
+        if (stopping && saturated<R>(acc, need, live, span)) return true;
     }
     return false;
 }
 
-template <bool kMin, int D, int kMode, int kRegD>
+template <int K, int D, int kMode, int kRegD>
 __device__ __forceinline__ bool scan_rows(bool two, const unsigned char* cb, int n,
                                           int phase, int ph, int span, int d, float eps2,
-                                          int stop_at, float (&ax)[2][kRegD],
+                                          float eps2_hi, bool stopping,
+                                          const int (&need)[2], float (&ax)[2][kRegD],
                                           const float* (&arow)[2], const bool (&live)[2],
-                                          int (&cnt)[2], float (&best)[2], int (&arg)[2]) {
+                                          Acc& acc) {
     if (two)
-        return scan_item<kMin, D, 2, kMode>(cb, n, 0, 1, 32, d, eps2, stop_at, ax, arow,
-                                            live, cnt, best, arg);
-    return scan_item<kMin, D, 1, kMode>(cb, n, phase, ph, span, d, eps2, stop_at, ax, arow,
-                                        live, cnt, best, arg);
+        return scan_item<K, D, 2, kMode>(cb, n, 0, 1, 32, d, eps2, eps2_hi, stopping,
+                                         need, ax, arow, live, acc);
+    return scan_item<K, D, 1, kMode>(cb, n, phase, ph, span, d, eps2, eps2_hi, stopping,
+                                     need, ax, arow, live, acc);
+}
+
+// One row's results into the outputs of the kernel's kind.
+template <int K>
+__device__ __forceinline__ void put(const DistArgs& p, int row, int cnt, int cnt2,
+                                    float best, float second, int arg) {
+    if (keeps_min(K)) {
+        p.out_min[row] = best;
+        // no valid candidate (or only infinitely far ones)
+        p.out_arg[row] = best == CUDART_INF_F ? -1 : arg;
+        if (K == kMin2) p.out_min2[row] = second;
+    } else {
+        p.out_cnt[row] = cnt;
+        if (K == kBand) p.out_cnt2[row] = cnt2;
+    }
 }
 
 // Blocks of the kernel at feature dim D that fit an SM's shared memory
-// (D = 0: the generic kernel, sized at kMaxRegD), at most 6: the launch
-// bound that lets ptxas use the registers that occupancy leaves.
+// (D = 0: the generic kernel, sized at kMaxRegD), at most 8 on the packed
+// route (64 registers a thread, which every kind fits there without a
+// spill) and 6 on the planes: the launch bound that lets ptxas use the
+// registers that occupancy leaves.
 constexpr int min_blocks(int D) {
     const int per_block = kWarpsPerBlock * warp_smem(D > 0 ? D : kMaxRegD).total;
     const int n = (int)(kMaxSmem / per_block);
-    return n < 1 ? 1 : (n > 6 ? 6 : n);
+    const int most = (D >= 1 && D <= 3) ? 8 : 6;
+    return n < 1 ? 1 : (n > most ? most : n);
 }
 
 // One warp, one task: a slot's rows (at most kGroup) against its
 // candidates, or with splits > 1 (a slot of at most 32 rows, the block's
 // splits warps on one slot) against the warp's share of the candidate
 // chunks.
-template <bool kMin, int D>
+template <int K, int D>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, min_blocks(D))
 dist_kernel(const DistArgs p, int splits) {
     constexpr int kRegD = (D > 0) ? D : kMaxRegD;
@@ -398,16 +427,22 @@ dist_kernel(const DistArgs p, int splits) {
     int issued = min(nq, kStages);
     for (int q = 0; q < issued; ++q) stage(q);
 
-    // the task's live rows (bit i of lo / hi is row i / 32 + i), compacted
-    // into lane slots: two a lane above 32 live rows, else rows x phases
+    // the task's live rows (bit i of lo / hi is row i / 32 + i): those
+    // that valid_a marks and, with kBand's bars, whose bar is above 0;
+    // compacted into lane slots: two a lane above 32 live rows, else rows x
+    // phases
+    const bool barred = K == kBand && p.stop_row != nullptr;
     unsigned lo, hi;
-    if (p.valid_a == nullptr) {
+    if (p.valid_a == nullptr && !barred) {
         lo = k.rows >= 32 ? 0xffffffffu : (1u << k.rows) - 1u;
         hi = k.rows >= 64 ? 0xffffffffu : k.rows > 32 ? (1u << (k.rows - 32)) - 1u : 0u;
     } else {
-        const uint8_t* va = p.valid_a + k.row0;
-        lo = __ballot_sync(0xffffffffu, lane < k.rows && va[lane] != 0);
-        hi = __ballot_sync(0xffffffffu, lane + 32 < k.rows && va[lane + 32] != 0);
+        auto is_live = [&](int i) {
+            return i < k.rows && (p.valid_a == nullptr || p.valid_a[k.row0 + i] != 0) &&
+                   (!barred || p.stop_row[k.row0 + i] > 0);
+        };
+        lo = __ballot_sync(0xffffffffu, is_live(lane));
+        hi = __ballot_sync(0xffffffffu, is_live(lane + 32));
     }
     const int n_lo = __popc(lo);
     const int n_live = n_lo + __popc(hi);
@@ -427,31 +462,35 @@ dist_kernel(const DistArgs p, int splits) {
         if (hi >> lane & 1u) rmap[n_lo + __popc(hi & below)] = (unsigned char)(lane + 32);
         __syncwarp();
     }
+    const bool stopping = K == kCount ? p.stop_at > 0 : barred;
+    const int cap = stopping ? kCapStop : (d <= 3 ? kCap : kCapPlanes);   // per item
     float ax[2][kRegD];
     const float* arow[2];
     bool live[2];
     int rowq[2];                    // the lane's rows within the task
-    int cnt[2];
-    float best[2];
-    int arg[2];
+    int need[2];                    // their bars on the first count
+    Acc acc;
 #pragma unroll
     for (int qq = 0; qq < 2; ++qq) {
         const int sl = slot0 + 32 * qq;
         live[qq] = sl < n_live;
         rowq[qq] = !live[qq] ? 0 : dense ? sl : rmap[sl];
         arow[qq] = p.a + (long long)(k.row0 + rowq[qq]) * d;
-        cnt[qq] = 0;
-        best[qq] = CUDART_INF_F;
-        arg[qq] = kNone;
+        need[qq] = barred && live[qq] ? p.stop_row[k.row0 + rowq[qq]] : p.stop_at;
+        acc.cnt[qq] = 0;
+        acc.cnt2[qq] = 0;
+        acc.best[qq] = CUDART_INF_F;
+        acc.second[qq] = CUDART_INF_F;
+        acc.arg[qq] = kNone;
     }
 
     // step 2: each chunk's valid candidates, 32 positions a round, are
     // placed at their compacted positions in the item (ballot + popc) and
     // their coordinates gathered there by cp.async; step 3, when the next
-    // round would take the item past kCap and at the end: the live rows scan
-    // it, one broadcast shared load per candidate.  eps_count stops once
-    // every live row has stop_at hits; the chunks already in flight are
-    // still waited for.
+    // round would take the item past its cap and at the end: the live rows
+    // scan it, one broadcast shared load per candidate.  kCount and kBand
+    // stop once every live row has reached its bar; the chunks already in
+    // flight are still waited for.
     const float* bs = p.b + k.slot * p.b_stride;
     unsigned char* cb = wsm + ws.comp_off;
     int n = 0;
@@ -470,14 +509,14 @@ dist_kernel(const DistArgs p, int splits) {
         __syncwarp();
         bool done;
         if (kMode == 0)
-            done = scan_rows<kMin, D, 0>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
-                                         ax, arow, live, cnt, best, arg);
+            done = scan_rows<K, D, 0>(two, cb, n, phase, ph, span, d, p.eps2, p.eps2_hi,
+                                      stopping, need, ax, arow, live, acc);
         else if (D > 0 || d <= kMaxRegD)
-            done = scan_rows<kMin, D, 1>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
-                                         ax, arow, live, cnt, best, arg);
+            done = scan_rows<K, D, 1>(two, cb, n, phase, ph, span, d, p.eps2, p.eps2_hi,
+                                      stopping, need, ax, arow, live, acc);
         else
-            done = scan_rows<kMin, D, 2>(two, cb, n, phase, ph, span, d, p.eps2, p.stop_at,
-                                         ax, arow, live, cnt, best, arg);
+            done = scan_rows<K, D, 2>(two, cb, n, phase, ph, span, d, p.eps2, p.eps2_hi,
+                                      stopping, need, ax, arow, live, acc);
         stop = stop || done;
         n = 0;
         __syncwarp();               // the item is read before it is refilled
@@ -501,7 +540,7 @@ dist_kernel(const DistArgs p, int splits) {
                 const int i = 32 * r + lane;
                 const bool v = i < len && mk[i] != 0;
                 const unsigned bits = __ballot_sync(0xffffffffu, v);
-                if (n + __popc(bits) > kCap) {
+                if (n + __popc(bits) > cap) {
                     scan();
                     if (stop) break;
                 }
@@ -517,8 +556,9 @@ dist_kernel(const DistArgs p, int splits) {
                         dst->w = __int_as_float(j);
                     } else {
                         float* pl = reinterpret_cast<float*>(cb);
-                        for (int kk = 0; kk < d; ++kk) cp_async4(pl + kk * kCap + pos, src + kk);
-                        reinterpret_cast<int*>(pl)[d * kCap + pos] = j;
+                        for (int kk = 0; kk < d; ++kk)
+                            cp_async4(pl + kk * kCapPlanes + pos, src + kk);
+                        reinterpret_cast<int*>(pl)[d * kCapPlanes + pos] = j;
                     }
                 }
                 n += __popc(bits);
@@ -529,23 +569,23 @@ dist_kernel(const DistArgs p, int splits) {
     }
     if (n > 0 && !stop) scan();
 
-    // the phases merge (d2, index) lexicographically, so the lowest index
-    // wins a tie; counts add
-    int tot[2];
+    // the phases merge in a butterfly (see the top of the file)
+    int tot[2], tot2[2];
 #pragma unroll
     for (int qq = 0; qq < 2; ++qq) {
-        tot[qq] = cnt[qq];
+        tot[qq] = acc.cnt[qq];
+        tot2[qq] = acc.cnt2[qq];
         if (!two && qq == 1) break;
         for (int o = span; o < 32; o <<= 1) {
-            if (kMin) {
-                const float ob = __shfl_xor_sync(0xffffffffu, best[qq], o);
-                const int oa = __shfl_xor_sync(0xffffffffu, arg[qq], o);
-                if (ob < best[qq] || (ob == best[qq] && oa < arg[qq])) {
-                    best[qq] = ob;
-                    arg[qq] = oa;
-                }
+            if (keeps_min(K)) {
+                const float ob = __shfl_xor_sync(0xffffffffu, acc.best[qq], o);
+                const float os = K == kMin2
+                    ? __shfl_xor_sync(0xffffffffu, acc.second[qq], o) : CUDART_INF_F;
+                const int oa = __shfl_xor_sync(0xffffffffu, acc.arg[qq], o);
+                merge_min<K>(acc.best[qq], acc.second[qq], acc.arg[qq], ob, os, oa);
             } else {
                 tot[qq] += __shfl_xor_sync(0xffffffffu, tot[qq], o);
+                if (K == kBand) tot2[qq] += __shfl_xor_sync(0xffffffffu, tot2[qq], o);
             }
         }
     }
@@ -554,67 +594,58 @@ dist_kernel(const DistArgs p, int splits) {
 #pragma unroll
             for (int qq = 0; qq < 2; ++qq) {
                 if (phase != 0 || !live[qq]) continue;
-                const int row = k.row0 + rowq[qq];
-                if (kMin) {
-                    p.out_min[row] = best[qq];
-                    // no valid candidate (or only infinitely far ones)
-                    p.out_arg[row] = best[qq] == CUDART_INF_F ? -1 : arg[qq];
-                } else {
-                    p.out_cnt[row] = tot[qq];
-                }
+                put<K>(p, k.row0 + rowq[qq], tot[qq], tot2[qq], acc.best[qq],
+                       acc.second[qq], acc.arg[qq]);
             }
-            if (!kMin) {            // rows that valid_a masks: count 0
-                if (lane < k.rows && !(lo >> lane & 1u)) p.out_cnt[k.row0 + lane] = 0;
+            if (!keeps_min(K)) {    // rows that valid_a masks or the bar exempts: 0
+                if (lane < k.rows && !(lo >> lane & 1u))
+                    put<K>(p, k.row0 + lane, 0, 0, 0.0f, 0.0f, 0);
                 if (lane + 32 < k.rows && !(hi >> lane & 1u))
-                    p.out_cnt[k.row0 + lane + 32] = 0;
+                    put<K>(p, k.row0 + lane + 32, 0, 0, 0.0f, 0.0f, 0);
             }
         }
         return;
     }
     // a split slot (at most 32 rows, one a lane slot): each warp leaves its
-    // partial result per row in its shared memory, and after the block's
-    // one barrier warp 0 merges them in split order
+    // partial result per row in its shared memory (the least d2 or the
+    // first count, the index or the second count, the runner-up), and after
+    // the block's one barrier warp 0 merges them in split order
     float* pb = reinterpret_cast<float*>(wsm + ws.part_off);
     int* pa = reinterpret_cast<int*>(pb + 32);
-    pb[lane] = kMin ? CUDART_INF_F : __int_as_float(0);
-    pa[lane] = kNone;
+    float* ps = pb + 64;
+    pb[lane] = keeps_min(K) ? CUDART_INF_F : __int_as_float(0);
+    if (K != kCount) pa[lane] = keeps_min(K) ? kNone : 0;
+    if (K == kMin2) ps[lane] = CUDART_INF_F;
     __syncwarp();
     if (phase == 0 && live[0]) {
-        pb[rowq[0]] = kMin ? best[0] : __int_as_float(tot[0]);
-        pa[rowq[0]] = arg[0];
+        pb[rowq[0]] = keeps_min(K) ? acc.best[0] : __int_as_float(tot[0]);
+        if (K != kCount) pa[rowq[0]] = keeps_min(K) ? acc.arg[0] : tot2[0];
+        if (K == kMin2) ps[rowq[0]] = acc.second[0];
     }
     __syncthreads();
     if (warp == 0 && lane < k.rows) {
-        float m = CUDART_INF_F;
-        int am = kNone, c = 0;
+        float m = CUDART_INF_F, m2 = CUDART_INF_F;
+        int am = kNone, c = 0, c2 = 0;
         for (int w = 0; w < splits; ++w) {
             const float* ob = reinterpret_cast<const float*>(smem + (size_t)w * ws.total +
                                                              ws.part_off);
             const float b = ob[lane];
-            const int a = reinterpret_cast<const int*>(ob + 32)[lane];
-            if (kMin) {
-                if (b < m || (b == m && a < am)) {
-                    m = b;
-                    am = a;
-                }
+            const int a = K == kCount ? 0 : reinterpret_cast<const int*>(ob + 32)[lane];
+            if (keeps_min(K)) {
+                merge_min<K>(m, m2, am, b, K == kMin2 ? ob[64 + lane] : CUDART_INF_F, a);
             } else {
                 c += __float_as_int(b);
+                c2 += a;
             }
         }
-        const int row = k.row0 + lane;
-        if (kMin) {
-            p.out_min[row] = m;
-            p.out_arg[row] = m == CUDART_INF_F ? -1 : am;
-        } else {
-            p.out_cnt[row] = c;
-        }
+        put<K>(p, k.row0 + lane, c, c2, m, m2, am);
     }
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (a call only above
 // the default 48 KB, so the usual launch costs no attribute call).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
@@ -631,9 +662,9 @@ int warps_per_block(int d) {
 
 // A warp per task; a slot of at most 32 rows whose candidates span more
 // than one chunk is split over up to kWarpsPerBlock warps of one block.
-template <bool kMin, int D>
+template <int K, int D>
 cudaError_t launch_dist(const DistArgs& p, cudaStream_t stream) {
-    auto kernel = dist_kernel<kMin, D>;
+    auto kernel = dist_kernel<K, D>;
     const int wpb = warps_per_block(p.d);
     if (wpb == 0) return cudaErrorInvalidValue;
     const size_t per_warp = (size_t)warp_smem(p.d).total;
@@ -649,218 +680,50 @@ cudaError_t launch_dist(const DistArgs& p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <bool kMin>
+template <int K>
 cudaError_t dispatch_dist(const DistArgs& p, cudaStream_t s) {
     switch (p.d) {
-        case 1: return launch_dist<kMin, 1>(p, s);
-        case 2: return launch_dist<kMin, 2>(p, s);
-        case 3: return launch_dist<kMin, 3>(p, s);
-        case 4: return launch_dist<kMin, 4>(p, s);
-        case 5: return launch_dist<kMin, 5>(p, s);
-        default: return launch_dist<kMin, 0>(p, s);
+        case 1: return launch_dist<K, 1>(p, s);
+        case 2: return launch_dist<K, 2>(p, s);
+        case 3: return launch_dist<K, 3>(p, s);
+        case 4: return launch_dist<K, 4>(p, s);
+        case 5: return launch_dist<K, 5>(p, s);
+        default: return launch_dist<K, 0>(p, s);
     }
 }
 
-// Two-threshold counts: hits at d2 <= lo2 and at d2 <= hi2 from one sweep.
-// stop_row (optional, [B, P] int32) is a per-row bar on the lo count: the
-// slot stops before its next tile once every row has lo >= its bar, which
-// keeps the contract "a row whose lo count is below its bar has scanned
-// every valid candidate" (checked before the first tile too, as the
-// reference's tiled loop does).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-eps_count_band_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      const uint8_t* __restrict__ valid_b,
-                      const int* __restrict__ stop_row,
-                      int* __restrict__ out_lo, int* __restrict__ out_hi,
-                      int P, int C, int d, float lo2, float hi2) {
-    extern __shared__ unsigned char smem[];
-    float* s_b = reinterpret_cast<float*>(smem);                     // [d][kTile]
-    int* s_lo = reinterpret_cast<int*>(s_b + (size_t)d * kTile);     // [P]
-    int* s_hi = s_lo + P;                                            // [P]
-    int* s_red = s_hi + P;                                           // [kWarps]
-    uint8_t* s_v = reinterpret_cast<uint8_t*>(s_red + kWarps);       // [kTile]
-
-    const int g = blockIdx.x;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* ag = a + (size_t)g * P * d;
-    const float* bg = b + (size_t)g * C * d;
-    const uint8_t* vbg = valid_b + (size_t)g * C;
-    const int* stop = stop_row ? stop_row + (size_t)g * P : nullptr;
-
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        s_lo[p] = 0;
-        s_hi[p] = 0;
-    }
-    __syncthreads();
-    const int n_last = last_valid(vbg, C, s_red);
-
-    for (int t0 = 0; t0 < n_last; t0 += kTile) {
-        if (stop) {
-            int saturated = 1;
-            for (int p = threadIdx.x; p < P; p += kThreads)
-                if (s_lo[p] < stop[p]) saturated = 0;
-            if (__syncthreads_and(saturated)) break;
-        }
-        const int tn = min(kTile, n_last - t0);
-        stage_tile(bg, vbg, t0, tn, d, s_b, s_v);
-        __syncthreads();
-        for (int p = warp; p < P; p += kWarps) {
-            float av[kMaxRegD];
-            const float* arow = ag + (size_t)p * d;
-            if (D > 0) {
-#pragma unroll
-                for (int k = 0; k < D; ++k) av[k] = arow[k];
-            }
-            int lo = 0, hi = 0;
-            for (int j = lane; j < tn; j += 32) {
-                float d2 = (D > 0) ? sq_dist<D>(av, s_b, j, d)
-                                   : sq_dist<0>(arow, s_b, j, d);
-                if (s_v[j]) {
-                    lo += (d2 <= lo2) ? 1 : 0;
-                    hi += (d2 <= hi2) ? 1 : 0;
-                }
-            }
-            for (int o = 16; o > 0; o >>= 1) {
-                lo += __shfl_xor_sync(0xffffffffu, lo, o);
-                hi += __shfl_xor_sync(0xffffffffu, hi, o);
-            }
-            if (lane == 0) {                  // row p belongs to this warp alone
-                s_lo[p] += lo;
-                s_hi[p] += hi;
-            }
-        }
-        __syncthreads();                      // tile consumed, counts visible
-    }
-    int* olo = out_lo + (size_t)g * P;
-    int* ohi = out_hi + (size_t)g * P;
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        olo[p] = s_lo[p];
-        ohi[p] = s_hi[p];
-    }
+// The threshold that hit() takes for a squared distance threshold t: t,
+// with -0 as +0; for a NaN or negative t, under which no distance is a
+// hit, the all-ones bit pattern.
+float hit_threshold(float t) {
+    if (t >= 0.0f) return t == 0.0f ? 0.0f : t;
+    const uint32_t ones = 0xffffffffu;
+    float f;
+    memcpy(&f, &ones, sizeof f);
+    return f;
 }
 
-// (min, first index, runner-up) of the row's multiset of distances.
-struct Min2 {
-    float best, second;
-    int arg;
-};
-
-// Merge two partial triples: (min, index) lexicographically, and the
-// runner-up is the smaller of both runners-up and the larger of both mins.
-__device__ __forceinline__ Min2 merge_min2(Min2 x, Min2 y) {
-    Min2 r;
-    const bool take_y = y.best < x.best || (y.best == x.best && y.arg < x.arg);
-    r.best = take_y ? y.best : x.best;
-    r.arg = take_y ? y.arg : x.arg;
-    r.second = fminf(fminf(x.second, y.second), fmaxf(x.best, y.best));
-    return r;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-row_min2_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                const uint8_t* __restrict__ valid_b,
-                float* __restrict__ out_min, float* __restrict__ out_min2,
-                int* __restrict__ out_arg, int P, int C, int d) {
-    extern __shared__ unsigned char smem[];
-    float* s_b = reinterpret_cast<float*>(smem);                     // [d][kTile]
-    float* s_min = s_b + (size_t)d * kTile;                          // [P]
-    float* s_min2 = s_min + P;                                       // [P]
-    int* s_arg = reinterpret_cast<int*>(s_min2 + P);                 // [P]
-    int* s_red = s_arg + P;                                          // [kWarps]
-    uint8_t* s_v = reinterpret_cast<uint8_t*>(s_red + kWarps);       // [kTile]
-
-    const int g = blockIdx.x;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* ag = a + (size_t)g * P * d;
-    const float* bg = b + (size_t)g * C * d;
-    const uint8_t* vbg = valid_b + (size_t)g * C;
-    const int kNone = 0x7fffffff;
-
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        s_min[p] = CUDART_INF_F;
-        s_min2[p] = CUDART_INF_F;
-        s_arg[p] = kNone;
-    }
-    __syncthreads();
-    const int n_last = last_valid(vbg, C, s_red);
-
-    for (int t0 = 0; t0 < n_last; t0 += kTile) {
-        const int tn = min(kTile, n_last - t0);
-        stage_tile(bg, vbg, t0, tn, d, s_b, s_v);
-        __syncthreads();
-        for (int p = warp; p < P; p += kWarps) {
-            float av[kMaxRegD];
-            const float* arow = ag + (size_t)p * d;
-            if (D > 0) {
-#pragma unroll
-                for (int k = 0; k < D; ++k) av[k] = arow[k];
-            }
-            Min2 m = {CUDART_INF_F, CUDART_INF_F, kNone};
-            for (int j = lane; j < tn; j += 32) {
-                float d2 = (D > 0) ? sq_dist<D>(av, s_b, j, d)
-                                   : sq_dist<0>(arow, s_b, j, d);
-                if (!s_v[j]) continue;
-                // ascending j within a lane: strict < keeps the first minimum;
-                // a tie with the minimum becomes the runner-up
-                if (d2 < m.best) {
-                    m.second = m.best;
-                    m.best = d2;
-                    m.arg = t0 + j;
-                } else if (d2 < m.second) {
-                    m.second = d2;
-                }
-            }
-            for (int o = 16; o > 0; o >>= 1) {
-                Min2 other;
-                other.best = __shfl_xor_sync(0xffffffffu, m.best, o);
-                other.second = __shfl_xor_sync(0xffffffffu, m.second, o);
-                other.arg = __shfl_xor_sync(0xffffffffu, m.arg, o);
-                m = merge_min2(m, other);
-            }
-            if (lane == 0) {
-                Min2 cur = {s_min[p], s_min2[p], s_arg[p]};
-                cur = merge_min2(cur, m);
-                s_min[p] = cur.best;
-                s_min2[p] = cur.second;
-                s_arg[p] = cur.arg;
-            }
-        }
-        __syncthreads();
-    }
-    float* omin = out_min + (size_t)g * P;
-    float* omin2 = out_min2 + (size_t)g * P;
-    int* oarg = out_arg + (size_t)g * P;
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        float m = s_min[p];
-        omin[p] = m;
-        omin2[p] = s_min2[p];
-        oarg[p] = (m == CUDART_INF_F) ? -1 : s_arg[p];
-    }
-}
-
-size_t band_smem(int P, int d) {
-    return (size_t)d * kTile * 4 + (size_t)P * 8 + kWarps * 4 + kTile;
-}
-
-size_t min2_smem(int P, int d) {
-    return (size_t)d * kTile * 4 + (size_t)P * 12 + kWarps * 4 + kTile;
+// The operands every kind shares; the outputs, thresholds and bars are
+// the caller's to set.
+DistArgs dist_args(const void* a, const void* b, const void* valid_b, int B, int P,
+                   int rows_total, int C, int d, long long b_stride, long long vb_stride) {
+    DistArgs p{};
+    p.a = (const float*)a;
+    p.b = (const float*)b;
+    p.valid_b = (const uint8_t*)valid_b;
+    p.B = B;
+    p.P = P;
+    p.rows_total = rows_total;
+    p.C = C;
+    p.d = d;
+    p.b_stride = b_stride;
+    p.vb_stride = vb_stride;
+    return p;
 }
 
 }  // namespace
 
-#define DISPATCH_D(d, CALL)                  \
-    switch (d) {                             \
-        case 1: CALL(1); break;              \
-        case 2: CALL(2); break;              \
-        case 3: CALL(3); break;              \
-        case 4: CALL(4); break;              \
-        case 5: CALL(5); break;              \
-        default: CALL(0); break;             \
-    }
-
-// Both entry points enqueue one launch on `stream` and return
+// Every entry point enqueues one launch on `stream` and returns
 // cudaGetLastError(); they allocate nothing and do not synchronise.
 // B slots of P rows cover rows_total rows of `a` (and of the outputs and
 // valid_a); slot g reads its candidates at b + g*b_stride floats and its
@@ -871,13 +734,26 @@ extern "C" int grit_eps_count_batch(const void* a, const void* b, const void* va
                                     long long vb_stride, float eps2, int stop_at,
                                     void* stream) {
     if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    const DistArgs p{(const float*)a, (const float*)b, (const uint8_t*)valid_b,
-                     (const uint8_t*)valid_a, (int*)out, nullptr, nullptr,
-                     B, P, rows_total, C, d, b_stride, vb_stride, eps2, stop_at};
-    return (int)dispatch_dist<false>(p, (cudaStream_t)stream);
+    DistArgs p = dist_args(a, b, valid_b, B, P, rows_total, C, d, b_stride, vb_stride);
+    p.valid_a = (const uint8_t*)valid_a;
+    p.out_cnt = (int*)out;
+    p.eps2 = hit_threshold(eps2);
+    p.stop_at = stop_at;
+    return (int)dispatch_dist<kCount>(p, (cudaStream_t)stream);
 }
 
-// The guard-band twins take dense batches: slot g reads its P rows at
+extern "C" int grit_row_min_batch(const void* a, const void* b, const void* valid_b,
+                                  void* out_min, void* out_arg, int B, int P,
+                                  int rows_total, int C, int d, long long b_stride,
+                                  long long vb_stride, void* stream) {
+    if (B <= 0 || P <= 0) return (int)cudaSuccess;
+    DistArgs p = dist_args(a, b, valid_b, B, P, rows_total, C, d, b_stride, vb_stride);
+    p.out_min = (float*)out_min;
+    p.out_arg = (int*)out_arg;
+    return (int)dispatch_dist<kMin>(p, (cudaStream_t)stream);
+}
+
+// The guard-band entries take dense batches: slot g reads its P rows at
 // a + g*P*d, its candidates at b + g*C*d and its mask at valid_b + g*C.
 // stop_row may be null (no early exit).
 extern "C" int grit_eps_count_band_batch(const void* a, const void* b,
@@ -886,52 +762,29 @@ extern "C" int grit_eps_count_band_batch(const void* a, const void* b,
                                          int C, int d, float lo2, float hi2,
                                          void* stream) {
     if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    size_t smem = band_smem(P, d);
-    cudaError_t err = cudaSuccess;
-#define CALL(DD)                                                                         \
-    err = allow_smem(eps_count_band_kernel<DD>, smem);                                   \
-    if (err == cudaSuccess)                                                              \
-        eps_count_band_kernel<DD><<<B, kThreads, smem, (cudaStream_t)stream>>>(          \
-            (const float*)a, (const float*)b, (const uint8_t*)valid_b,                   \
-            (const int*)stop_row, (int*)out_lo, (int*)out_hi, P, C, d, lo2, hi2)
-    DISPATCH_D(d, CALL)
-#undef CALL
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    DistArgs p = dist_args(a, b, valid_b, B, P, B * P, C, d, (long long)C * d, C);
+    p.stop_row = (const int*)stop_row;
+    p.out_cnt = (int*)out_lo;
+    p.out_cnt2 = (int*)out_hi;
+    p.eps2 = hit_threshold(lo2);
+    p.eps2_hi = hit_threshold(hi2);
+    return (int)dispatch_dist<kBand>(p, (cudaStream_t)stream);
 }
 
 extern "C" int grit_row_min2_batch(const void* a, const void* b, const void* valid_b,
                                    void* out_min, void* out_min2, void* out_arg,
                                    int B, int P, int C, int d, void* stream) {
     if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    size_t smem = min2_smem(P, d);
-    cudaError_t err = cudaSuccess;
-#define CALL(DD)                                                                         \
-    err = allow_smem(row_min2_kernel<DD>, smem);                                         \
-    if (err == cudaSuccess)                                                              \
-        row_min2_kernel<DD><<<B, kThreads, smem, (cudaStream_t)stream>>>(                \
-            (const float*)a, (const float*)b, (const uint8_t*)valid_b,                   \
-            (float*)out_min, (float*)out_min2, (int*)out_arg, P, C, d)
-    DISPATCH_D(d, CALL)
-#undef CALL
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    DistArgs p = dist_args(a, b, valid_b, B, P, B * P, C, d, (long long)C * d, C);
+    p.out_min = (float*)out_min;
+    p.out_min2 = (float*)out_min2;
+    p.out_arg = (int*)out_arg;
+    return (int)dispatch_dist<kMin2>(p, (cudaStream_t)stream);
 }
 
-extern "C" int grit_row_min_batch(const void* a, const void* b, const void* valid_b,
-                                  void* out_min, void* out_arg, int B, int P,
-                                  int rows_total, int C, int d, long long b_stride,
-                                  long long vb_stride, void* stream) {
-    if (B <= 0 || P <= 0) return (int)cudaSuccess;
-    const DistArgs p{(const float*)a, (const float*)b, (const uint8_t*)valid_b, nullptr,
-                     nullptr, (float*)out_min, (int*)out_arg,
-                     B, P, rows_total, C, d, b_stride, vb_stride, 0.0f, 0};
-    return (int)dispatch_dist<true>(p, (cudaStream_t)stream);
-}
-
-// The staging route of eps_count_batch / row_min_batch at feature dim d:
-// 0 packed float4 candidates (d <= 3), 1 coordinate planes with the rows
-// in registers (d <= 8), 2 planes with the rows read from device memory.
+// The staging route of the distance kernels at feature dim d: 0 packed
+// float4 candidates (d <= 3), 1 coordinate planes with the rows in
+// registers (d <= 8), 2 planes with the rows read from device memory.
 extern "C" int grit_pairwise_route(int d) {
     return d <= 3 ? 0 : (d <= kMaxRegD ? 1 : 2);
 }

@@ -46,10 +46,12 @@ has k hits.  Rows that ``valid_a`` masks receive counts the caller must
 ignore.
 
 ``stop_row`` contract (``eps_count_band_batch``): a per-row bar on the
-lo count (0 exempts a row).  A row whose returned lo count is below its
-bar has scanned every valid candidate, so both of its counts are
-complete; the kernel stops a slot once every row reached its bar.  The
-plain version returns full counts.
+lo count.  A row whose returned lo count is below its bar has scanned
+every valid candidate, so both of its counts are complete.  A row whose
+bar is <= 0 is exempt: the kernel does not scan it and returns 0 for
+both of its counts.  The kernel ends a task (a slot's rows, or a split's
+share of its candidates) once every other row of it has reached its bar,
+checked every 32 candidates.  The plain version returns full counts.
 
 No-candidate contract: a row none of whose candidates is valid reports
 ``(inf, -1)`` from ``row_min`` / ``row_min_batch`` and ``(inf, inf, -1)``
@@ -284,15 +286,22 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def declare_distance(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of ``grit_eps_count_batch`` and
-    ``grit_row_min_batch`` on a loaded library (this one's, or another
+    """Declare the C signatures of the four batched distance entries and
+    ``grit_pairwise_route`` on a loaded library (this one's, or another
     version of ``csrc/pairwise.cu`` built to be timed beside it)."""
     lib.grit_eps_count_batch.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _F, _I, _VP]
-    lib.grit_eps_count_batch.restype = _I
     lib.grit_row_min_batch.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL, _VP]
-    lib.grit_row_min_batch.restype = _I
+    lib.grit_eps_count_band_batch.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP]
+    lib.grit_row_min2_batch.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+    lib.grit_pairwise_route.argtypes = [_I]
+    for fn in (lib.grit_eps_count_batch, lib.grit_row_min_batch,
+               lib.grit_eps_count_band_batch, lib.grit_row_min2_batch,
+               lib.grit_pairwise_route):
+        fn.restype = _I
     return lib
 
 
@@ -301,22 +310,14 @@ def _lib() -> ctypes.CDLL:
     loaded at the first launch, never at import)."""
     global _LIB
     if _LIB is None:
-        lib = declare_distance(build.load("pairwise"))
-        lib.grit_eps_count_band_batch.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP]
-        lib.grit_eps_count_band_batch.restype = _I
-        lib.grit_row_min2_batch.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
-        lib.grit_row_min2_batch.restype = _I
-        lib.grit_pairwise_route.argtypes = [_I]
-        lib.grit_pairwise_route.restype = _I
-        _LIB = lib
+        _LIB = declare_distance(build.load("pairwise"))
     return _LIB
 
 
 def pairwise_route(d: int) -> str:
-    """How the built ``eps_count[_batch]`` / ``row_min[_batch]`` kernel
-    stages candidates at feature dim ``d``, as its library reports it:
+    """How the built distance kernels (all four batched ones and the
+    unbatched pair) stage candidates at feature dim ``d``, as their
+    library reports it:
     ``"packed"`` (float4 {x, y, z, index}, d <= 3), ``"planes"`` (one
     plane per coordinate, rows in registers, d <= 8) or ``"wide"``
     (planes, rows read from device memory).  Builds and loads the

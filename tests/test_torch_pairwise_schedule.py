@@ -1,29 +1,35 @@
-"""The schedule of the CUDA ``eps_count_batch`` / ``row_min_batch``
-kernels, emulated in numpy on the CPU and held against the plain
-PyTorch versions and ``repro.kernels.ref``.
+"""The schedule of the CUDA distance kernels (``eps_count_batch``,
+``row_min_batch``, ``eps_count_band_batch``, ``row_min2_batch``: one
+kernel, ``dist_kernel<kind, D>``), emulated in numpy on the CPU and held
+against the plain PyTorch versions and ``repro.kernels.ref``.
 
-The kernels (``csrc/pairwise.cu``) give each slot to one warp, or a
+The kernel (``csrc/pairwise.cu``) gives each slot to one warp, or a
 slot of at most 32 rows whose candidates span several chunks of
 ``kChunk`` positions to up to ``kWarpsPerBlock`` warps, each taking a
 range of the chunks (a split).  Per warp, the slot's live rows are
 compacted into lane slots (two rows a lane above 32 live rows, else rows
 x phases with phase = compacted candidate mod phases); the valid
 candidates are compacted in ascending order, 32 positions a round, into
-items of at most ``kCap`` (a round that would overflow the item starts
-the next one; the end of the warp's range closes its item); each lane
-scans its candidates of an item in ascending order with strict ``<`` (or
-counts hits), eps counts stop once every live row has ``stop_at`` hits
-(checked every 32 compacted candidates of an item), and the phases merge
-``(d2, index)`` lexicographically in a butterfly at the end; the splits
-merge the same way in split order, their counts added.
-:func:`emulate` does the
-same steps with the same float32 arithmetic (``sum_k (a_k - b_k)^2``,
-each operation rounded), so a fault in the schedule's logic -- a tie
-resolved to the wrong index, a stop taken too early, a row lost in the
-compaction -- shows here, without the card.
+items of at most ``kCap`` (``kCapPlanes`` for d > 3), ``kCapStop`` for a
+task that may end early (a round that would overflow the item starts the
+next one; the end of the warp's range closes its item); each lane scans
+its candidates of an item in ascending order with strict ``<`` (keeping
+the runner-up for ``row_min2``) or counts hits (at two thresholds for the
+band); counts stop once every live row's first count has reached its bar
+(``stop_at``, or the band's per-row ``stop_row``), checked every 32
+compacted candidates of an item; a band row whose bar is <= 0 is exempt,
+not live, so neither scanned nor counted; the phases merge in a
+butterfly at the end: counts add, ``(d2, index)`` lexicographically, the
+runner-up as the smaller of both runners-up and the larger of both
+minima; the splits merge the same way in split order.  :func:`emulate`
+does the same steps with the same float32 arithmetic (``sum_k (a_k -
+b_k)^2``, each operation rounded), so a fault in the schedule's logic --
+a tie resolved to the wrong index, a runner-up lost across a phase, a
+stop taken too early, a row lost in the compaction -- shows here, without
+the card.
 
 Tolerances: none; integer lattices make every distance exact, so
-counts, minima and argmins must be equal.
+counts, minima, runners-up and argmins must be equal.
 """
 
 import re
@@ -108,17 +114,25 @@ def split_ranges(C: int, splits: int):
 
 
 def emulate(a, b, vb, va, eps2, stop_at, kind, phases=None, cap=None,
-            group=None, splits=None):
+            group=None, splits=None, eps2_hi=None, bar=None):
     """One launch of the kernel's schedule: a [B, P, d], b [B, C, d],
     vb [B, C], va [B, P] or None.  ``phases`` forces the phase count and
     ``splits`` the warps per slot; None takes the kernel's rule.  Returns
-    counts [B, P] (``kind="count"``) or (min [B, P], argmin [B, P])."""
-    cap = cap or _kernel_constant("kCap")
+    per ``kind``: ``"count"`` counts [B, P]; ``"min"`` (min, argmin);
+    ``"band"`` (hits at ``eps2``, hits at ``eps2_hi``), with ``bar``
+    [B, P] or None the per-row bar on the first count; ``"min2"`` (min,
+    runner-up, argmin)."""
+    stopping = (kind == "count" and bool(stop_at)) or \
+        (kind == "band" and bar is not None)
+    cap = cap or _kernel_constant(
+        "kCapStop" if stopping else "kCap" if a.shape[2] <= 3 else "kCapPlanes")
     group = group or _kernel_constant("kGroup")
     B, P, _ = a.shape
     C = b.shape[1]
     cnt_out = np.zeros((B, P), np.int64)
+    cnt2_out = np.zeros((B, P), np.int64)
     min_out = np.full((B, P), np.inf, np.float32)
+    sec_out = np.full((B, P), np.inf, np.float32)
     arg_out = np.full((B, P), -1, np.int64)
     group_rows = min(P, group)
     ranges = split_ranges(C, split_count(P, C) if splits is None else splits)
@@ -126,34 +140,64 @@ def emulate(a, b, vb, va, eps2, stop_at, kind, phases=None, cap=None,
         for r0 in range(0, P, group_rows):
             rows = np.arange(r0, min(P, r0 + group_rows))
             live = rows if va is None else rows[va[g, rows]]
+            if kind == "band" and bar is not None:
+                live = live[bar[g, live] > 0]    # exempt rows are not live
             if len(live) == 0:
                 continue
             ph = layout(len(live))[2] if phases is None else phases
-            parts = [_scan_range(a[g, live], b[g], vb[g], lo, hi, eps2,
-                                 stop_at, kind, ph, cap) for lo, hi in ranges]
-            # the splits merge in order: (d2, index) lexicographically
-            cnt, best, arg = parts[0]
-            for c2, b2, a2 in parts[1:]:
-                take = (b2 < best) | ((b2 == best) & (a2 < arg))
-                best, arg = np.where(take, b2, best), np.where(take, a2, arg)
-                cnt = cnt + c2
+            need = None
+            if kind == "count" and stop_at:
+                need = np.full(len(live), stop_at, np.int64)
+            if kind == "band" and bar is not None:
+                need = bar[g, live]
+            parts = [_scan_range(a[g, live], b[g], vb[g], lo, hi, eps2, eps2_hi,
+                                 need, kind, ph, cap) for lo, hi in ranges]
+            acc = parts[0]                       # the splits merge in order
+            for part in parts[1:]:
+                acc = _merge(acc, part)
+            cnt, cnt2, best, sec, arg = acc
             cnt_out[g, live] = cnt
+            cnt2_out[g, live] = cnt2
             min_out[g, live] = best
+            sec_out[g, live] = sec
             arg_out[g, live] = np.where(np.isinf(best), -1, arg)
     if kind == "count":
         return cnt_out
-    return min_out, arg_out
+    if kind == "band":
+        return cnt_out, cnt2_out
+    if kind == "min":
+        return min_out, arg_out
+    return min_out, sec_out, arg_out
 
 
-def _scan_range(a_live, b, vb, lo, hi, eps2, stop_at, kind, ph, cap):
+def _merge(x, y):
+    """Two partial results of the same rows, merged as the kernel merges
+    phases and splits: counts add; (d2, index) lexicographically; the
+    runner-up is the smaller of both runners-up and the larger of both
+    minima."""
+    cnt, cnt2, best, sec, arg = x
+    c2, h2, b2, s2, a2 = y
+    take = (b2 < best) | ((b2 == best) & (a2 < arg))
+    sec = np.minimum(np.minimum(sec, s2), np.maximum(best, b2))
+    return (cnt + c2, cnt2 + h2, np.where(take, b2, best), sec,
+            np.where(take, a2, arg))
+
+
+def _scan_range(a_live, b, vb, lo, hi, eps2, eps2_hi, need, kind, ph, cap):
     """One warp: live rows ``a_live`` against the valid candidates of
     positions [lo, hi) (``lo`` a chunk boundary, so rounds of 32 stay
-    aligned), ``ph`` phases.  Returns per row (count, min, argmin) after
-    the phases' butterfly."""
+    aligned), ``ph`` phases, items of at most ``cap``.  ``need`` (count
+    and band kinds; None: no exit) is each row's bar on its first count:
+    the warp ends once every row has reached it, checked every 32
+    compacted candidates of an item.  Returns per row (count, second
+    count, min, runner-up, argmin) after the phases' butterfly."""
     n_live = len(a_live)
     cnt = np.zeros((n_live, ph), np.int64)
+    cnt2 = np.zeros((n_live, ph), np.int64)
     best = np.full((n_live, ph), np.inf, np.float32)
+    sec = np.full((n_live, ph), np.inf, np.float32)
     arg = np.full((n_live, ph), np.iinfo(np.int32).max, np.int64)
+    stopping = need is not None
     done = False
     for comp in items_of(vb[lo:hi], cap):        # ascending: the compaction
         if done:
@@ -161,34 +205,36 @@ def _scan_range(a_live, b, vb, lo, hi, eps2, stop_at, kind, ph, cap):
         comp = comp + lo
         d2 = _d2(a_live, b[comp])
         n = len(comp)
-        blk = n if (kind == "min" or not stop_at) else 32
+        blk = 32 if stopping else n
         for jb in range(0, n, max(blk, 1)):
             je = min(n, jb + blk)
             for f in range(ph):
                 js = np.arange(jb + f, je, ph)
                 if len(js) == 0:
                     continue
-                if kind == "min":
+                if kind in ("min", "min2"):
                     for j in js:                 # ascending, strict <
+                        if kind == "min2":
+                            sec[:, f] = np.minimum(sec[:, f],
+                                                   np.maximum(best[:, f], d2[:, j]))
                         better = d2[:, j] < best[:, f]
                         best[better, f] = d2[better, j]
                         arg[better, f] = comp[j]
                 else:
                     cnt[:, f] += (d2[:, js] <= eps2).sum(axis=1)
-            if kind == "count" and stop_at and \
-                    (cnt.sum(axis=1) >= stop_at).all():
+                    if kind == "band":
+                        cnt2[:, f] += (d2[:, js] <= eps2_hi).sum(axis=1)
+            if stopping and (cnt.sum(axis=1) >= need).all():
                 done = True
                 break
-    # butterfly over the phases: lexicographic (d2, index)
+    # butterfly over the phases
+    acc = (cnt, cnt2, best, sec, arg)
     o = 1
     while o < ph:
         other = np.arange(ph) ^ o
-        ob, oa = best[:, other], arg[:, other]
-        take = (ob < best) | ((ob == best) & (oa < arg))
-        best, arg = np.where(take, ob, best), np.where(take, oa, arg)
-        cnt = cnt + cnt[:, other]
+        acc = _merge(acc, tuple(x[:, other] for x in acc))
         o <<= 1
-    return cnt[:, 0], best[:, 0], arg[:, 0]
+    return tuple(x[:, 0] for x in acc)
 
 
 def _lattice(key, B, P, C, d):
@@ -381,6 +427,8 @@ def test_emulation_mirrors_the_kernel_constants():
     assert _kernel_constant("kChunk") % 32 == 0
     assert _kernel_constant("kCap") >= 32
     assert _kernel_constant("kGroup") == 64
+    assert 32 <= _kernel_constant("kCapStop") <= _kernel_constant("kCapPlanes") \
+        <= _kernel_constant("kCap")
     src = (build.CSRC / "pairwise.cu").read_text()
     assert "cp.async" in src and "__ballot_sync" in src
 
@@ -449,3 +497,288 @@ def test_chunk_compaction_keeps_ascending_order(off, length):
             break
         n = 0                            # the next item
     assert got == want.tolist()
+
+
+# --------------------------------------------------------------------------
+# the guard-band kinds: two-threshold counts with a per-row bar, and
+# (min, runner-up, argmin)
+# --------------------------------------------------------------------------
+
+EPS_LO, EPS_HI = 3.0, 3.5             # squared exactly in float32: 9, 12.25
+
+
+def _band_contract(got, want, bar):
+    """The ``stop_row`` contract: a row whose lo count is below its bar
+    has both counts complete; every other row has reached its bar and
+    counts no hit it did not see."""
+    (glo, ghi), (wlo, whi) = got, want
+    below = glo < bar
+    np.testing.assert_array_equal(glo[below], wlo[below])
+    np.testing.assert_array_equal(ghi[below], whi[below])
+    assert (glo <= wlo).all() and (ghi <= whi).all()
+
+
+def _want_min2(a, b, vb):
+    """(min, runner-up, argmin) of the plain version, checked against
+    ``repro.kernels.ref`` on the way."""
+    wm, wm2, wi = (x.numpy() for x in tops.row_min2_batch_plain(
+        torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(vb)))
+    jm, jm2, ji = (np.asarray(x) for x in jref.row_min2_batch(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(vb)))
+    np.testing.assert_array_equal(wm, jm)
+    np.testing.assert_array_equal(wm2, jm2)
+    np.testing.assert_array_equal(wi, ji)
+    return wm, wm2, wi
+
+
+def _want_band(a, b, vb):
+    want = tuple(x.numpy() for x in tops.eps_count_band_batch_plain(
+        torch.as_tensor(a), torch.as_tensor(b), EPS_LO, EPS_HI,
+        torch.as_tensor(vb)))
+    ref = jref.eps_count_band_batch(jnp.asarray(a), jnp.asarray(b), EPS_LO,
+                                    EPS_HI, jnp.asarray(vb))
+    for w, r in zip(want, ref):
+        np.testing.assert_array_equal(w, np.asarray(r))
+    return want
+
+
+def _bars(key, B, P, k):
+    """Random per-row bars in [-1, k] (negative and 0 exempt a row)."""
+    return _rng("bars", *key).integers(-1, k + 1, size=(B, P))
+
+
+@pytest.mark.parametrize("phases", PHASES + [None])
+@pytest.mark.parametrize("P", PS)
+def test_schedule_row_min2_matches_plain_and_reference(P, phases):
+    a, b, vb, _ = _lattice(("min2", P, phases), 3, P, 600, 3)
+    got = emulate(a, b, vb, None, 0.0, None, "min2", phases)
+    for g, w in zip(got, _want_min2(a, b, vb)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("phases", PHASES + [None])
+@pytest.mark.parametrize("P", PS)
+def test_schedule_eps_count_band_matches_plain_and_reference(P, phases):
+    a, b, vb, _ = _lattice(("band", P, phases), 3, P, 600, 3)
+    want = _want_band(a, b, vb)
+    full = emulate(a, b, vb, None, 9.0, None, "band", phases, eps2_hi=12.25)
+    for g, w in zip(full, want):
+        np.testing.assert_array_equal(g, w)
+    for k in (1, 5, 40):
+        bar = _bars(("band", P, phases, k), 3, P, k)
+        got = emulate(a, b, vb, None, 9.0, None, "band", phases,
+                      eps2_hi=12.25, bar=bar)
+        _band_contract(got, want, bar)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("P", [1, 8, 31, 32])
+def test_split_slots_band_and_min2_match_plain_and_reference(P, splits):
+    """The guard-band kinds over a small slot's candidates split over
+    several warps (5 chunks and a ragged sixth): runners-up equal and
+    the bar contract holds whatever the split count."""
+    C = 5 * _kernel_constant("kChunk") + 77
+    a, b, vb, _ = _lattice(("split2", P, splits), 3, P, C, 3)
+    got = emulate(a, b, vb, None, 0.0, None, "min2", splits=splits)
+    for g, w in zip(got, _want_min2(a, b, vb)):
+        np.testing.assert_array_equal(g, w)
+    want = _want_band(a, b, vb)
+    for k in (None, 1, 40):
+        bar = None if k is None else _bars(("split2", P, splits, k), 3, P, k)
+        got = emulate(a, b, vb, None, 9.0, None, "band", splits=splits,
+                      eps2_hi=12.25, bar=bar)
+        if bar is None:
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        else:
+            _band_contract(got, want, bar)
+
+
+def test_min2_duplicate_minimum_across_phase_and_split_boundaries():
+    """The nearest point twice, at compacted positions 0 and 1 (two
+    phases) or on both sides of a split boundary: the runner-up is the
+    minimum and the argmin the first copy, in every layout; with one copy
+    masked the runner-up is the next distance."""
+    chunk = _kernel_constant("kChunk")
+    C = 4 * chunk
+    a = np.ones((1, 8, 2), np.float32)
+    far = np.float32(2 * 49.0 ** 2)
+    for pair, layouts in (((0, 1), [dict(phases=f) for f in PHASES + [None]]),
+                          ((2 * chunk - 1, 2 * chunk),
+                           [dict(splits=s) for s in SPLITS])):
+        b = np.full((1, C, 2), 50.0, np.float32)
+        b[0, list(pair)] = [1.0, 1.0]
+        vb = np.ones((1, C), bool)
+        for kw in layouts:
+            m, m2, i = emulate(a, b, vb, None, 0.0, None, "min2", **kw)
+            assert (m == 0).all() and (m2 == 0).all() and (i == pair[0]).all()
+        np.testing.assert_array_equal(
+            np.stack(emulate(a, b, vb, None, 0.0, None, "min2")),
+            np.stack(_want_min2(a, b, vb)))
+        vb[0, pair[0]] = False
+        for kw in layouts:
+            m, m2, i = emulate(a, b, vb, None, 0.0, None, "min2", **kw)
+            assert (m == 0).all() and (m2 == far).all() and (i == pair[1]).all()
+
+
+@pytest.mark.parametrize("layout_kw", [dict(phases=1), dict(phases=32),
+                                       dict(splits=4), {}])
+def test_min2_one_valid_candidate(layout_kw):
+    """A slot with one valid candidate reports (d2, inf, index); a slot
+    with none (inf, inf, -1)."""
+    chunk = _kernel_constant("kChunk")
+    rng = _rng("one", repr(layout_kw))
+    a = rng.integers(-5, 6, size=(2, 5, 3)).astype(np.float32)
+    b = rng.integers(-5, 6, size=(2, 3 * chunk, 3)).astype(np.float32)
+    vb = np.zeros((2, 3 * chunk), bool)
+    vb[0, chunk + 7] = True
+    m, m2, i = emulate(a, b, vb, None, 0.0, None, "min2", **layout_kw)
+    np.testing.assert_array_equal(m[0], _d2(a[0], b[0, [chunk + 7]])[:, 0])
+    assert np.isinf(m2).all() and (i[0] == chunk + 7).all()
+    assert np.isinf(m[1]).all() and (i[1] == -1).all()
+    for g, w in zip((m, m2, i), _want_min2(a, b, vb)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_band_bars_reached_at_different_candidates_in_one_split_only():
+    """1-d candidates 0 .. C-1 over four splits.  Rows 0 and 1 reach
+    their bars in split 0, at candidates 10 and 302 (row 0 has one more
+    hit later in split 0, at 400); rows 2 and 3 are exempt, so neither
+    scanned nor counted (row 2's hits lie in splits 0 and 3).  Split 0
+    ends after the round of 32 that holds 302, so it never sees 400; the
+    other splits, where rows 0 and 1 have no hit, scan everything.  In
+    one warp the whole slot ends there."""
+    chunk = _kernel_constant("kChunk")
+    C = 4 * chunk
+    b = np.arange(C, dtype=np.float32)[None, :, None].copy()
+    b[0, 400, 0] = 10.0                          # row 0's late hit
+    b[0, 1800, 0] = 700.0                        # row 2's hit in split 3
+    a = np.array([[[10.0], [300.0], [700.0], [1500.0]]], np.float32)
+    vb = np.ones((1, C), bool)
+    bar = np.array([[3, 5, 0, -2]])
+    want = tuple(x.numpy() for x in tops.eps_count_band_batch_plain(
+        torch.as_tensor(a), torch.as_tensor(b), 2.0, 3.0,
+        torch.as_tensor(vb)))
+    assert want[0].tolist() == [[6, 5, 6, 5]] and want[1].tolist() == [[8, 7, 8, 7]]
+    for splits in (4, 1):
+        lo, hi = emulate(a, b, vb, None, 4.0, None, "band", splits=splits,
+                         eps2_hi=9.0, bar=bar)
+        assert lo.tolist() == [[5, 5, 0, 0]] and hi.tolist() == [[7, 7, 0, 0]]
+        _band_contract((lo, hi), want, bar)
+    # a bar the row does not reach: every split scans everything for it
+    lo, hi = emulate(a, b, vb, None, 4.0, None, "band", splits=4,
+                     eps2_hi=9.0, bar=np.array([[7, 0, 0, 0]]))
+    assert lo.tolist() == [[6, 0, 0, 0]] and hi.tolist() == [[8, 0, 0, 0]]
+
+
+@pytest.mark.parametrize("P", [8, 33, 63])
+def test_band_all_exempt_bars_scan_nothing(P):
+    """A task whose rows are all exempt (bars 0 or below) has no live row
+    and counts nothing, which the contract allows; one row with a bar
+    above its count makes its task scan, for that row alone."""
+    a, b, vb, _ = _lattice(("exempt", P), 3, P, 900, 3)
+    want = _want_band(a, b, vb)
+    bar = _rng("exempt_bars", P).integers(-3, 1, size=(3, P))
+    lo, hi = emulate(a, b, vb, None, 9.0, None, "band", eps2_hi=12.25, bar=bar)
+    assert (lo == 0).all() and (hi == 0).all()
+    _band_contract((lo, hi), want, bar)
+    bar[2, 0] = want[0][2, 0] + 1
+    lo, hi = emulate(a, b, vb, None, 9.0, None, "band", eps2_hi=12.25, bar=bar)
+    assert lo[2, 0] == want[0][2, 0] and hi[2, 0] == want[1][2, 0]
+    lo[2, 0] = hi[2, 0] = 0
+    assert (lo == 0).all() and (hi == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 1000])
+@pytest.mark.parametrize("P", PS)
+def test_band_exempt_rows_are_neither_scanned_nor_counted(P, k):
+    """Bars of -1, 0 (exempt) or k mixed in every slot, over 5 chunks and
+    a ragged sixth (a split slot for P <= 32): the exempt rows count 0,
+    every other row keeps the contract, and with a bar no row reaches
+    (k = 1000) its counts are the full ones."""
+    C = 5 * _kernel_constant("kChunk") + 77
+    a, b, vb, _ = _lattice(("exempt_rows", P, k), 3, P, C, 3)
+    want = _want_band(a, b, vb)
+    bar = _rng("exempt_rows", P, k).choice([-1, 0, k], size=(3, P))
+    lo, hi = emulate(a, b, vb, None, 9.0, None, "band", eps2_hi=12.25, bar=bar)
+    exempt = bar <= 0
+    assert (lo[exempt] == 0).all() and (hi[exempt] == 0).all()
+    _band_contract((lo, hi), want, bar)
+    if k == 1000:
+        np.testing.assert_array_equal(lo[~exempt], want[0][~exempt])
+        np.testing.assert_array_equal(hi[~exempt], want[1][~exempt])
+
+
+def test_every_batched_entry_launches_the_one_kernel():
+    """The distance plane is one design: each batched C entry dispatches
+    the warp-per-task kernel with its own kind, and the source holds no
+    other kernel."""
+    src = (build.CSRC / "pairwise.cu").read_text()
+    assert src.count("__global__") == 1
+    kinds = {"grit_eps_count_batch": "kCount", "grit_row_min_batch": "kMin",
+             "grit_eps_count_band_batch": "kBand",
+             "grit_row_min2_batch": "kMin2"}
+    for entry, kind in kinds.items():
+        body = src.split(f'extern "C" int {entry}(', 1)[1]
+        body = body.split('extern "C"', 1)[0]
+        assert f"dispatch_dist<{kind}>" in body, entry
+
+
+def _hit_threshold(t) -> np.float32:
+    """The C entries' ``hit_threshold(t)``: t (-0 as +0), or the all-ones
+    bit pattern for a NaN or negative t."""
+    t = np.float32(t)
+    if t >= 0:
+        return np.float32(0.0) if t == 0 else t
+    return np.array([0xFFFFFFFF], np.uint32).view(np.float32)[0]
+
+
+def _hit(d2: np.ndarray, t: np.float32) -> np.ndarray:
+    """The kernels' ``hit(d2, t)``: the sign bit of bits(d2) - bits(t) - 1
+    in 32-bit integers."""
+    x = d2.astype(np.float32).view(np.uint32).astype(np.int64)
+    y = int(np.array(t, np.float32).view(np.uint32))
+    return (((x - y - 1) & 0xFFFFFFFF) >> 31).astype(np.int64)
+
+
+@pytest.mark.parametrize("t", [0.0, -0.0, 1e-45, 1.17549435e-38, 0.5, 1.0,
+                               9.0, 22650.25, 3.4028235e38, np.inf, np.nan,
+                               -1.0])
+def test_hit_is_the_float_compare_on_bit_patterns(t):
+    """For a non-negative d2 (denormals, 0, inf and the card's NaN
+    included) and any threshold as ``hit_threshold`` passes it on (NaN,
+    negative and -0 included), the integer test equals ``d2 <= t``."""
+    t = np.float32(t)
+    rng = _rng("hit", float(t))
+    scale = np.float32(t if np.isfinite(t) and t > 0 else 1.0)
+    with np.errstate(over="ignore", invalid="ignore"):
+        d2 = np.concatenate([
+            np.abs(rng.normal(size=4000)).astype(np.float32) * scale,
+            rng.uniform(0, 2, size=2000).astype(np.float32) * scale,
+            np.array([0.0, 1e-45, 1e-40, 1.17549435e-38, 3.4028235e38, np.inf],
+                     np.float32),
+            np.nextafter(t, np.float32(np.inf), dtype=np.float32)[None],
+            np.nextafter(t, np.float32(0), dtype=np.float32)[None], t[None]])
+        d2 = np.abs(d2[~np.isnan(d2)])
+        want = (d2 <= t).astype(np.int64)
+    np.testing.assert_array_equal(_hit(d2, _hit_threshold(t)), want)
+    nan = np.array([0x7FFFFFFF], np.int32).view(np.float32)   # the card's NaN
+    assert _hit(nan, _hit_threshold(t))[0] == 0
+
+
+def test_every_threshold_reaches_the_kernel_through_hit_threshold():
+    """The C entries pass every squared threshold through
+    ``hit_threshold``, so a NaN eps counts nothing on the card, as in
+    the plain versions."""
+    src = (build.CSRC / "pairwise.cu").read_text()
+    assert "p.eps2 = hit_threshold(eps2);" in src
+    assert "p.eps2 = hit_threshold(lo2);" in src
+    assert "p.eps2_hi = hit_threshold(hi2);" in src
+    assert src.count("p.eps2 =") == 2 and src.count("p.eps2_hi =") == 1
+    a = torch.zeros(2, 3, 3)
+    b = torch.zeros(2, 5, 3)
+    vb = torch.ones(2, 5, dtype=torch.bool)
+    nan = float("nan")
+    assert (tops.eps_count_batch_plain(a, b, nan, vb) == 0).all()
+    assert all((c == 0).all() for c in tops.eps_count_band_batch_plain(
+        a, b, nan, nan, vb))
