@@ -50,6 +50,25 @@ result line) as soon as a phase fails:
            (equal after every step) and a fifth with the resident stages'
            gates at 0, each stage's flat-gather and host-twin runs
            counted, and a snapshot round trip
+  server   the serve phase's index through ``snapshot()``, restored
+           twice, behind two ``ClusterServer``s (8 slots of 2,048
+           queries) on one scripted stream from ``--seed``: 96 predict
+           requests of log-uniform 1 - 2,048 ``_queries_mixed`` queries,
+           two inserts of 204 points and a delete of 104 live arrival
+           ids at fixed positions.  A serves in device mode on a
+           resident state, B in kernel mode from a read replica that
+           catches up from B's mutation log (B must launch
+           ``row_min_batch``; its largest call is held against the plain
+           version).  Tracing is on for that run: the labels of every
+           predict request equal between A and B, the replica's state
+           equal to its primary's and the two planes equal, the
+           ``serve.step.*`` and ``delta.*`` spans recorded, and per
+           server the steps, latency percentiles, queries/s, slot fill,
+           the step log's kernel / pack seconds, the growth events and
+           the attribution of ``serve.step`` to its children; the Chrome
+           trace goes to ``build/chip_smoke_server_trace.json``.  Then
+           the stream's predicts again on A with tracing off (no event
+           recorded) and on, their median step seconds side by side
   guard_band  the two guard-band kernels (the same warp-per-task kernel
            as the distance kernels, kinds band and min2) against their
            plain versions on the largest kernel-mode predict call, on the
@@ -93,8 +112,8 @@ result line) as soon as a phase fails:
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
-``launches`` is the sum over the fit's cold run, the serve phase and the
-lm phase.
+``launches`` is the sum over the fit's cold run, the serve phase, the
+server phase and the lm phase.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -150,6 +169,12 @@ REPLACES = {
 SERVE_BATCH = 2048
 SERVE_BATCHES = 8
 MUTATION_STEPS = 4
+# phase server: the scripted stream and the servers' admission shape
+SERVER_PREDICTS = 96
+SERVER_INSERT = 204
+SERVER_DELETE = 104
+SERVER_SLOTS = 8
+SERVER_QUERY_CAP = 2048
 
 
 def emit(phase: str, **fields) -> None:
@@ -1120,6 +1145,230 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
 
 
 # --------------------------------------------------------------------------
+# server: the continuous-batching ClusterServer with a read replica
+# --------------------------------------------------------------------------
+
+def server_script(pts, sc, live, rng):
+    """The scripted stream of phase ``server``: ``SERVER_PREDICTS``
+    predict requests of log-uniform 1 - 2,048 queries from
+    ``_queries_mixed``, two inserts of ``SERVER_INSERT`` points and one
+    delete of ``SERVER_DELETE`` live arrival ids at fixed positions."""
+    from repro_torch.data.scenarios import _insert_drift, _queries_mixed
+    sizes = np.clip(np.rint(np.exp(rng.uniform(
+        0.0, math.log(SERVER_QUERY_CAP), SERVER_PREDICTS))), 1,
+        SERVER_QUERY_CAP).astype(int)
+    mutations = {
+        SERVER_PREDICTS // 4: ("insert", _insert_drift(
+            rng, pts, sc, SERVER_INSERT, 0, 2)),
+        SERVER_PREDICTS // 2: ("delete", rng.choice(
+            live, SERVER_DELETE, replace=False)),
+        3 * SERVER_PREDICTS // 4: ("insert", _insert_drift(
+            rng, pts, sc, SERVER_INSERT, 1, 2)),
+    }
+    script = []
+    for i, m in enumerate(sizes):
+        if i in mutations:
+            script.append(mutations[i])
+        script.append(("predict", _queries_mixed(rng, pts, sc, int(m))))
+    return script
+
+
+def serve_script(srv, script):
+    """Submit the stream, drain it; returns the requests by id."""
+    for kind, payload in script:
+        {"predict": srv.submit, "insert": srv.submit_insert,
+         "delete": srv.submit_delete}[kind](payload)
+    srv.run()
+    torch.cuda.synchronize()
+    return sorted(srv.done, key=lambda r: r.rid)
+
+
+def server_readings(srv, events):
+    """Per server: the summary's numbers, the step log's sums, and the
+    attribution of ``serve.step`` to its children and of the delta
+    stages (from the run's own span events)."""
+    from repro_torch.obs import view
+    s = srv.summary()
+    att = view.attribution(events, root="serve.step")
+    agg = view.span_aggregates(events)
+    wall = att["wall_us"]
+    return dict(
+        steps=s["steps"], requests=s["requests"], queries=s["queries"],
+        inserted=s["inserted"], deleted=s["deleted"],
+        rejected=s["rejected"],
+        latency_ms_p50=s["latency_ms_p50"], latency_ms_p95=s["latency_ms_p95"],
+        latency_ms_p99=s["latency_ms_p99"],
+        queries_per_s=s["queries_per_s"],
+        mean_slot_fill=s["mean_slot_fill"],
+        kernel_s=sum(st["kernel_s"] for st in srv.step_log),
+        pack_s=sum(st["pack_s"] for st in srv.step_log),
+        step_s=[st["seconds"] for st in srv.step_log],
+        growth_events=s["growth_events"],
+        attribution=dict(
+            root="serve.step", wall_ms=wall / 1e3,
+            self_ms=agg.get("serve.step", {}).get("self_us", 0.0) / 1e3,
+            coverage=att["coverage"],
+            children={k: dict(ms=v / 1e3, share=v / wall if wall else 0.0)
+                      for k, v in sorted(att["children"].items(),
+                                         key=lambda kv: -kv[1])}),
+        delta_ms={k: dict(count=int(a["count"]), ms=a["total_us"] / 1e3)
+                  for k, a in sorted(agg.items()) if k.startswith("delta.")})
+
+
+def server_phase(index, pts, eps, seed, smi):
+    """Two ``ClusterServer``s over restores of the served index's
+    snapshot, on one scripted stream: A in device mode on a resident
+    state, B in kernel mode answering from a read replica.  Tracing on
+    for that run (Chrome trace to ``build/``), then the stream's
+    predicts again on A with tracing off and on.  Returns (the phase
+    line's fields, launches of the server path, the largest
+    ``row_min_batch`` call of B)."""
+    from repro_torch import obs
+    from repro_torch.data.scenarios import get_scenario
+    from repro_torch.index import GritIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ClusterServer
+
+    t_phase = time.perf_counter()
+    n = len(pts)
+    sc = dataclasses.replace(get_scenario("blobs-3d"), eps=eps, n=n)
+    rng = np.random.default_rng(seed + 40_000)
+    snap = index.snapshot()
+    script = server_script(pts, sc, index.arrival_live(), rng)
+    n_pred = sum(k == "predict" for k, _ in script)
+    kw = dict(slots=SERVER_SLOTS, query_cap=SERVER_QUERY_CAP)
+
+    captured = []                        # B's largest kernel-mode call
+    real_min = ops.row_min_batch
+
+    def keep_min(a, b, valid_b=None):
+        if not captured or b.numel() > captured[0][1].numel():
+            captured[:] = [(a, b, valid_b)]
+        return real_min(a, b, valid_b)
+
+    t0 = time.perf_counter()
+    # each restore gets its own arrays: a snapshot holds the index's own,
+    # which a delete updates in place
+    idx_a, idx_b = (GritIndex.restore({k: v.copy() for k, v in snap.items()})
+                    for _ in range(2))
+    idx_b.enable_mutation_log()
+    restore_s = time.perf_counter() - t0
+    reg = obs.registry()
+    ctr0 = reg.snapshot()
+    was = obs.enabled()
+    tracer = obs.enable(clear=True)
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        srv_a = ClusterServer(idx_a, mode="device", device_state=True, **kw)
+        torch.cuda.synchronize()
+        attach_a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        done_a = serve_script(srv_a, script)
+        run_a_s = time.perf_counter() - t0
+        n_a = len(tracer.snapshot_events())
+        launches_a = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        srv_b = ClusterServer(idx_b, mode="kernel", replicas=1, **kw)
+        replica_s = time.perf_counter() - t0
+        ops.row_min_batch = keep_min
+        try:
+            t0 = time.perf_counter()
+            done_b = serve_script(srv_b, script)
+            run_b_s = time.perf_counter() - t0
+        finally:
+            ops.row_min_batch = real_min
+        events = tracer.snapshot_events()   # one timeline: A, then B
+        ev_a, ev_b = events[:n_a], events[n_a:]
+        launches = dict(ops.LAUNCHES)
+    finally:
+        frozen = obs.disable()
+    ctr1 = reg.snapshot()
+    trace_path = os.path.join("build", "chip_smoke_server_trace.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    obs.export.write_chrome_trace(os.path.join(root, trace_path), events,
+                                  metrics=ctr1, meta=obs.bench_meta())
+
+    # ---- checks ----------------------------------------------------------
+    require(len(done_a) == len(done_b) == len(script),
+            "the servers did not answer every request")
+    diff = [r.rid for r, q in zip(done_a, done_b) if r.kind == "predict"
+            and not np.array_equal(r.labels, q.labels)]
+    require(not diff, f"servers A and B differ on predict requests {diff}")
+    rep = srv_b.replicas[0]
+    require(np.array_equal(rep.labels_arrival(), idx_b.labels_arrival())
+            and np.array_equal(rep.core_arrival(), idx_b.core_arrival()),
+            "the replica's state differs from its primary's")
+    require(np.array_equal(idx_a.labels_arrival(), idx_b.labels_arrival())
+            and np.array_equal(idx_a.core_arrival(), idx_b.core_arrival()),
+            "the device plane and the host plane differ after the stream")
+    sa, sb = srv_a.summary(), srv_b.summary()
+    require(sa["rejected"] == sb["rejected"], "rejected counts differ")
+    b_launches = launches["row_min_batch"] - launches_a["row_min_batch"]
+    require(b_launches > 0, "server B never launched row_min_batch")
+    require(srv_b._rr == sum(1 for st in srv_b.step_log if st["queries"]),
+            "a predict batch of B was not answered by the replica")
+    names_a = {e["name"] for e in ev_a}
+    names_b = {e["name"] for e in ev_b}
+    steps = {f"serve.step.{k}" for k in
+             ("mutate", "dispatch", "admit_next", "resolve")}
+    delta = {f"delta.{d}.{k}" for d, ks in (
+        ("insert", ("identifiers", "splice", "cores", "merge_repair",
+                    "reconcile")),
+        ("delete", ("tombstone", "demotions", "merge_repair", "components",
+                    "compaction"))) for k in ks}
+    for tag, names in (("A", names_a), ("B", names_b)):
+        require(steps | delta <= names, f"server {tag}'s trace lacks "
+                f"{sorted((steps | delta) - names)}")
+
+    # ---- predict-only reruns: tracing off, on, on, off --------------------
+    preds = [(k, p) for k, p in script if k == "predict"]
+    n_frozen = len(frozen.snapshot_events())
+    step_s = {"off": [], "on": []}
+    first, n_on = None, []
+    for on in (False, True, True, False):
+        if on:
+            obs.enable(clear=True)
+        try:
+            srv = ClusterServer(idx_a, mode="device", **kw)
+            done = serve_script(srv, preds)
+            step_s["on" if on else "off"] += [st["seconds"]
+                                              for st in srv.step_log]
+            if on:
+                n_on.append(len(obs.get_tracer().snapshot_events()))
+            else:
+                require(obs.get_tracer() is None
+                        and len(frozen.snapshot_events()) == n_frozen,
+                        "a tracing-off rerun recorded span events")
+        finally:
+            obs.disable()
+        first = first or [r.labels for r in done]
+        require(len(done) == len(preds) and all(
+            np.array_equal(r.labels, w) for r, w in zip(done, first)),
+            "the predict-only reruns answered otherwise")
+    if was:
+        obs.enable()
+    fields = dict(
+        n=n, card=smi, slots=SERVER_SLOTS, query_cap=SERVER_QUERY_CAP,
+        predicts=n_pred, queries=int(sum(len(p) for _, p in preds)),
+        inserts=[SERVER_INSERT, SERVER_INSERT], delete=SERVER_DELETE,
+        restore_s=restore_s, attach_device_state_s=attach_a_s,
+        make_replica_s=replica_s, run_s={"A": run_a_s, "B": run_b_s},
+        A=server_readings(srv_a, ev_a), B=server_readings(srv_b, ev_b),
+        row_min_batch_launches_B=b_launches,
+        counters={k: v - ctr0.get(k, 0) for k, v in ctr1.items()
+                  if isinstance(v, int) and v != ctr0.get(k, 0)},
+        labels_equal=True, replica_equal=True,
+        rerun_median_step_s={k: float(np.median(v))
+                             for k, v in step_s.items()},
+        rerun_steps=len(step_s["on"]) // 2, rerun_events_off=0,
+        rerun_events_on=n_on, trace=trace_path,
+        phase_s=time.perf_counter() - t_phase)
+    return fields, launches, captured[0]
+
+
+# --------------------------------------------------------------------------
 # guard-band kernels vs their plain versions
 # --------------------------------------------------------------------------
 
@@ -1892,6 +2141,22 @@ def main() -> int:
     emit("serve", **serve, launches=serve_launches,
          predict_row_min=predict_row_min)
 
+    # ---- server ---------------------------------------------------------
+    before_server = dict(ops.LAUNCHES)  # server_phase resets the counts
+    server, server_launches, server_call = server_phase(
+        index, pts, eps, args.seed, smi)
+    # server B's largest kernel-mode predict call against the plain version
+    sa_, sb_, svb_ = server_call
+    err, _, mism = compare_row_min(ops, sa_, sb_, svb_, True)
+    require(err == 0.0 and mism == 0, f"row_min_batch differs from its "
+            f"plain version on server B's call: err={err} argmin={mism}")
+    emit("server", **server, launches=server_launches,
+         row_min_batch_call=dict(shape=[*sa_.shape[:2], sb_.shape[1],
+                                        sa_.shape[2]],
+                                 max_abs_err=err, argmin_mismatches=mism),
+         script_s=time.perf_counter() - t_script)
+    del server_call, sa_, sb_, svb_
+
     # ---- guard-band kernels ---------------------------------------------
     _, lo2, hi2 = index.device_state.thresholds(index)
     eps_lo, eps_hi = math.sqrt(lo2), math.sqrt(hi2)
@@ -1925,14 +2190,17 @@ def main() -> int:
     emit("lm", **lm, script_s=time.perf_counter() - t_script)
     torch.cuda.empty_cache()
 
-    # launches on the three driven paths (the cold fit, the serve phase,
-    # the lm phase's served parts), each counted on its own run; the
-    # distance kernels have no place on the lm path and flash none on
-    # the other two; launches_script also counts the comparison launches
+    # launches on the four driven paths (the cold fit, the serve phase,
+    # the server phase, the lm phase's served parts), each counted on its
+    # own run; the distance kernels have no place on the lm path and
+    # flash none on the other three; launches_script also counts the
+    # comparison launches
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
+                      "server": server_launches[name],
                       "lm": lm_launches[name]} for name in REPLACES}
     for name, paths in by_path.items():
-        off = ("fit", "serve") if name == "flash_attention" else ("lm",)
+        off = (("fit", "serve", "server") if name == "flash_attention"
+               else ("lm",))
         require(all(paths[p] == 0 for p in off),
                 f"{name} launched on a path it has no place on: {paths}")
     extra = ("kernel_route", "graph_ms", "parent_ms", "parent_graph_ms")
@@ -1941,6 +2209,7 @@ def main() -> int:
                     launches=sum(by_path[r["name"]].values()),
                     launches_by_path=by_path[r["name"]],
                     launches_script=(before_serve[r["name"]]
+                                     + before_server[r["name"]]
                                      + after_band[r["name"]]
                                      + lm_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1956,6 +2225,7 @@ def main() -> int:
         launches=sum(by_path["flash_attention"].values()),
         launches_by_path=by_path["flash_attention"],
         launches_script=(before_serve["flash_attention"]
+                         + before_server["flash_attention"]
                          + flash_compare + lm_launches["flash_attention"]),
         shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
         ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.device_dbscan import (GritCaps, DeviceDBSCANResult,
                                   OverflowReport, device_dbscan)
 from ..core.grids import identifiers
@@ -316,8 +317,12 @@ def adaptive_loop(run, grow, describe, caps, max_retries: int):
         result, report = run(caps)
         overflowed = report.overflowing()
         attempts.append({"caps": describe(caps), "overflow": overflowed})
+        obs.counter("adaptive.attempts").inc()
         if not overflowed:
             return result, attempts
+        obs.counter("adaptive.retries").inc()
+        for f in overflowed:
+            obs.counter(f"adaptive.overflow.{f}").inc()
         if "grid" in overflowed:
             overflowed = tuple(f for f in overflowed
                                if f in ("grid", "halo"))

@@ -32,6 +32,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
+from .. import obs
 from .adaptive import resolve_device
 from .result import ClusterResult
 
@@ -176,10 +177,15 @@ def cluster(points, eps: float, min_pts: int, *,
             f"NaN/Inf); clean the input before clustering")
     name = resolve_auto(device) if engine == "auto" else engine
     spec = get_engine(name)
-    result = spec.fn(pts, float(eps), int(min_pts), device=device, **opts)
+    obs.counter(f"engine.cluster.{name}").inc()
+    with obs.span("engine.cluster", engine=name, n=int(pts.shape[0]),
+                  d=int(pts.shape[1])):
+        result = spec.fn(pts, float(eps), int(min_pts), device=device,
+                         **opts)
     assert result.labels.shape == (pts.shape[0],), \
         f"engine {name}: labels shape {result.labels.shape}"
     if return_index:
-        result = _attach_index(result, np.asarray(pts, np.float64),
-                               float(eps), int(min_pts))
+        with obs.span("engine.attach_index", engine=name):
+            result = _attach_index(result, np.asarray(pts, np.float64),
+                                   float(eps), int(min_pts))
     return result

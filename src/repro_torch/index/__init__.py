@@ -8,6 +8,7 @@ micro-batch inserts / deletes without refitting).
     res.index.delete(arrival_ids)                # exact removal
     res.index.ensure_device_state()              # resident serving state
     snap = res.index.snapshot()                  # flat arrays, savez-able
+    reps = make_replicas(res.index, 2)           # read-only log replicas
 
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``.  Both mutation directions run through one delta
@@ -18,9 +19,11 @@ core-grid merge graph.
 from .delta import (MutationLog, build_merge_graph, compact, delete_ids,
                     insert_batch)
 from .grit_index import GritIndex, PredictCaps
+from .replica import ReplicaIndex, make_replicas
 
-__all__ = ["GritIndex", "MutationLog", "PredictCaps", "build_merge_graph",
-           "compact", "delete_ids", "fit_index", "insert_batch"]
+__all__ = ["GritIndex", "MutationLog", "PredictCaps", "ReplicaIndex",
+           "build_merge_graph", "compact", "delete_ids", "fit_index",
+           "insert_batch", "make_replicas"]
 
 
 def fit_index(points, eps: float, min_pts: int, *, engine: str = "auto",

@@ -64,6 +64,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..core.grids import group_rows
 from ..core.merging import fast_merging
 
@@ -666,80 +667,94 @@ def insert_batch(index, batch) -> Dict[str, Any]:
         raise ValueError("insert batch contains non-finite coordinates")
 
     # ---- 1. identifiers (fit-time formula) + origin shift ---------------
-    new_ids = index.query_ids(B)
-    neg = np.minimum(new_ids.min(axis=0), 0)
-    shifted = bool((neg < 0).any())
-    if shifted:
-        # keep the stored-ids >= 0 invariant by translating the
-        # integer lattice -- never by moving the float origin, which
-        # could re-cell existing points through rounding.  A uniform
-        # shift preserves lex order, so grid numbering (and the merge
-        # graph's endpoints) are untouched.
-        shift = (-neg).astype(np.int64)
-        index.ids = index.ids + shift[None, :]
-        new_ids = new_ids + shift[None, :]
-        index.id_shift = index.id_shift + shift
+    with obs.span("delta.insert.identifiers"):
+        new_ids = index.query_ids(B)
+        neg = np.minimum(new_ids.min(axis=0), 0)
+        shifted = bool((neg < 0).any())
+        if shifted:
+            # keep the stored-ids >= 0 invariant by translating the
+            # integer lattice -- never by moving the float origin, which
+            # could re-cell existing points through rounding.  A uniform
+            # shift preserves lex order, so grid numbering (and the merge
+            # graph's endpoints) are untouched.
+            shift = (-neg).astype(np.int64)
+            index.ids = index.ids + shift[None, :]
+            new_ids = new_ids + shift[None, :]
+            index.id_shift = index.id_shift + shift
 
     # ---- 2. merge into the sorted structure -----------------------------
-    n_old, G_old = index.n, index.num_grids
-    old_grid_of = _grid_of_rows(index)
-    old_pt_ids = np.repeat(index.ids, index.counts, axis=0)   # [n, d]
-    all_ids = np.concatenate([old_pt_ids, new_ids])
-    order, sids, starts, counts, grid_of = group_rows(all_ids)
-    index.points = np.concatenate([index.points, B])[order]
-    index.arrival = np.concatenate(
-        [index.arrival,
-         index.next_arrival + np.arange(m, dtype=np.int64)])[order]
-    index.next_arrival += m
-    index.core = np.concatenate([index.core, np.zeros(m, bool)])[order]
-    index.alive = np.concatenate([index.alive, np.ones(m, bool)])[order]
-    index.labels = np.concatenate(
-        [index.labels, np.full(m, -1, np.int64)])[order]
-    index.ids = sids[starts]
-    index.starts, index.counts = starts, counts
-    index.live_counts = np.bincount(
-        grid_of, weights=index.alive, minlength=len(starts)
-        ).astype(np.int64)
-    if index.merge_edges is not None and G_old:
-        # re-sorting renumbers grids; old grids survive (their rows
-        # do), so map each old index to its new one through any of
-        # its rows and carry the edge list over
-        old_rows = order < n_old
-        old_to_new = np.empty(G_old, np.int64)
-        old_to_new[old_grid_of[order[old_rows]]] = grid_of[old_rows]
-        if len(index.merge_edges):
-            index.merge_edges = old_to_new[index.merge_edges]
-    index.invalidate()
-    is_new = order >= n_old                                   # sorted
-    ds = getattr(index, "device_state", None)
-    if ds is not None:
-        # splice rewrote the row layout: structural re-upload (also
-        # folds the new coordinates into the error-band span)
-        ds.refresh_rows(index)
+    with obs.span("delta.insert.splice") as sp:
+        n_old, G_old = index.n, index.num_grids
+        old_grid_of = _grid_of_rows(index)
+        old_pt_ids = np.repeat(index.ids, index.counts, axis=0)   # [n, d]
+        all_ids = np.concatenate([old_pt_ids, new_ids])
+        order, sids, starts, counts, grid_of = group_rows(all_ids)
+        index.points = np.concatenate([index.points, B])[order]
+        index.arrival = np.concatenate(
+            [index.arrival,
+             index.next_arrival + np.arange(m, dtype=np.int64)])[order]
+        index.next_arrival += m
+        index.core = np.concatenate([index.core, np.zeros(m, bool)])[order]
+        index.alive = np.concatenate([index.alive, np.ones(m, bool)])[order]
+        index.labels = np.concatenate(
+            [index.labels, np.full(m, -1, np.int64)])[order]
+        index.ids = sids[starts]
+        index.starts, index.counts = starts, counts
+        index.live_counts = np.bincount(
+            grid_of, weights=index.alive, minlength=len(starts)
+            ).astype(np.int64)
+        if index.merge_edges is not None and G_old:
+            # re-sorting renumbers grids; old grids survive (their rows
+            # do), so map each old index to its new one through any of
+            # its rows and carry the edge list over
+            old_rows = order < n_old
+            old_to_new = np.empty(G_old, np.int64)
+            old_to_new[old_grid_of[order[old_rows]]] = grid_of[old_rows]
+            if len(index.merge_edges):
+                index.merge_edges = old_to_new[index.merge_edges]
+        index.invalidate()
+        is_new = order >= n_old                                   # sorted
+        ds = getattr(index, "device_state", None)
+        if ds is not None:
+            # splice rewrote the row layout: structural re-upload (also
+            # folds the new coordinates into the error-band span)
+            ds.refresh_rows(index)
+            sp.sync(ds.points_res, ds.alive_res, ds.core_res)
 
     # ---- 3. core recompute over the touched stencil ---------------------
-    tree = index.tree
-    touched = np.unique(grid_of[is_new])
-    ip_t, nb_t, _ = tree.query(index.ids[touched], include_self=False)
-    affected = np.unique(np.concatenate([touched, nb_t]))
-    newly_core = _recompute_cores(index, affected, +1, ctr)
-    index.invalidate(keep_tree=True)  # core CSR is stale now
+    with obs.span("delta.insert.cores") as sp:
+        tree = index.tree
+        touched = np.unique(grid_of[is_new])
+        ip_t, nb_t, _ = tree.query(index.ids[touched], include_self=False)
+        affected = np.unique(np.concatenate([touched, nb_t]))
+        newly_core = _recompute_cores(index, affected, +1, ctr)
+        index.invalidate(keep_tree=True)  # core CSR is stale now
+        if ds is not None:
+            sp.sync(ds.core_res)          # the in-place core flips
 
     # ---- 4. merge-graph repair at changed-core-set grids ----------------
-    changed = (np.unique(grid_of[newly_core]) if len(newly_core)
-               else np.empty(0, np.int64))
-    if index.merge_edges is None:
-        _ensure_graph(index, ctr)     # post-splice state == repaired
-    elif len(changed):
-        _update_merge_edges(index, changed, +1, ctr)
+    with obs.span("delta.insert.merge_repair"):
+        changed = (np.unique(grid_of[newly_core]) if len(newly_core)
+                   else np.empty(0, np.int64))
+        if index.merge_edges is None:
+            _ensure_graph(index, ctr)     # post-splice state == repaired
+        elif len(changed):
+            _update_merge_edges(index, changed, +1, ctr)
 
     # ---- 5. label reconciliation + border pass --------------------------
-    remap = _relabel_components(index, grid_of, ctr)
-    _reconcile_noncore(index, grid_of, changed, remap, +1,
-                       np.flatnonzero(is_new), ctr)
-    if ds is not None:
-        ds.refresh_small(index)       # CSR + merge-edge mirrors
+    with obs.span("delta.insert.reconcile") as sp:
+        remap = _relabel_components(index, grid_of, ctr)
+        _reconcile_noncore(index, grid_of, changed, remap, +1,
+                           np.flatnonzero(is_new), ctr)
+        if ds is not None:
+            ds.refresh_small(index)       # CSR + merge-edge mirrors
+            sp.sync(ds.merge_edges_res)
 
+    reg = obs.registry()
+    reg.counter("delta.insert.count").inc()
+    reg.counter("delta.insert.points").inc(m)
+    reg.counter("delta.dist_evals").inc(int(ctr["dist_evals"]))
+    reg.counter("delta.merge_checks").inc(int(ctr["merge_checks"]))
     return _insert_stats(index, t0, ctr, inserted=m,
                          touched=len(touched), affected=len(affected),
                          changed=len(changed), newly_core=newly_core,
@@ -804,49 +819,66 @@ def delete_ids(index, arrival_ids) -> Dict[str, Any]:
                              compacted=False)
 
     # ---- 1. tombstone -----------------------------------------------------
-    grid_of = _grid_of_rows(index)
-    was_core_grids = np.unique(grid_of[rows[index.core[rows]]])
-    index.alive[rows] = False
-    index.core[rows] = False
-    index.labels[rows] = -1
-    np.subtract.at(index.live_counts, grid_of[rows], 1)
-    index.invalidate(keep_tree=True)  # ids untouched: tree survives
-    ds = getattr(index, "device_state", None)
-    if ds is not None:
-        ds.mark_dead(rows)            # in-place tombstone of the mirror
+    with obs.span("delta.delete.tombstone") as sp:
+        grid_of = _grid_of_rows(index)
+        was_core_grids = np.unique(grid_of[rows[index.core[rows]]])
+        index.alive[rows] = False
+        index.core[rows] = False
+        index.labels[rows] = -1
+        np.subtract.at(index.live_counts, grid_of[rows], 1)
+        index.invalidate(keep_tree=True)  # ids untouched: tree survives
+        ds = getattr(index, "device_state", None)
+        if ds is not None:
+            ds.mark_dead(rows)            # in-place tombstone of the mirror
+            sp.sync(ds.alive_res, ds.core_res)
 
     # ---- 2. demotions over the touched stencil --------------------------
-    tree = index.tree
-    touched = np.unique(grid_of[rows])
-    ip_t, nb_t, _ = tree.query(index.ids[touched], include_self=False)
-    affected = np.unique(np.concatenate([touched, nb_t]))
-    demoted = _recompute_cores(index, affected, -1, ctr)
-    demoted_arrival = index.arrival[demoted]
-    index.invalidate(keep_tree=True)
+    with obs.span("delta.delete.demotions") as sp:
+        tree = index.tree
+        touched = np.unique(grid_of[rows])
+        ip_t, nb_t, _ = tree.query(index.ids[touched], include_self=False)
+        affected = np.unique(np.concatenate([touched, nb_t]))
+        demoted = _recompute_cores(index, affected, -1, ctr)
+        demoted_arrival = index.arrival[demoted]
+        index.invalidate(keep_tree=True)
+        if ds is not None:
+            sp.sync(ds.core_res)          # the in-place core flips
 
     # ---- 3. merge-graph repair at changed-core-set grids ----------------
     # (a grid whose core was deleted outright changed too, even with no
     # demotion -- its surviving core set is smaller)
-    changed = np.unique(np.concatenate(
-        [was_core_grids,
-         grid_of[demoted] if len(demoted) else np.empty(0, np.int64)]))
-    if index.merge_edges is None:
-        _ensure_graph(index, ctr)
-    elif len(changed):
-        _update_merge_edges(index, changed, -1, ctr)
+    with obs.span("delta.delete.merge_repair"):
+        changed = np.unique(np.concatenate(
+            [was_core_grids,
+             grid_of[demoted] if len(demoted) else np.empty(0, np.int64)]))
+        if index.merge_edges is None:
+            _ensure_graph(index, ctr)
+        elif len(changed):
+            _update_merge_edges(index, changed, -1, ctr)
 
     # ---- 4. components + border reconciliation --------------------------
-    remap = _relabel_components(index, grid_of, ctr)
-    _reconcile_noncore(index, grid_of, changed, remap, -1, None, ctr)
+    with obs.span("delta.delete.components"):
+        remap = _relabel_components(index, grid_of, ctr)
+        _reconcile_noncore(index, grid_of, changed, remap, -1, None, ctr)
 
     # ---- 5. threshold-triggered compaction ------------------------------
-    compacted = False
-    if index.dead_fraction > index.compact_threshold:
-        compact(index)                # refreshes the mirror itself
-        compacted = True
-    elif ds is not None:
-        ds.refresh_small(index)
+    with obs.span("delta.delete.compaction") as sp:
+        compacted = False
+        if index.dead_fraction > index.compact_threshold:
+            compact(index)                # refreshes the mirror itself
+            compacted = True
+        elif ds is not None:
+            ds.refresh_small(index)
+        if ds is not None:
+            sp.sync(ds.points_res, ds.merge_edges_res)
 
+    reg = obs.registry()
+    reg.counter("delta.delete.count").inc()
+    reg.counter("delta.delete.points").inc(len(rows))
+    reg.counter("delta.dist_evals").inc(int(ctr["dist_evals"]))
+    reg.counter("delta.merge_checks").inc(int(ctr["merge_checks"]))
+    if compacted:
+        reg.counter("delta.compactions").inc()
     return _delete_stats(index, t0, ctr, requested=len(ids),
                          deleted=len(rows), rejected=rejected,
                          touched=len(touched), affected=len(affected),

@@ -57,6 +57,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.grids import group_rows
 from ..engine.adaptive import ResidentCaps, resolve_device
 from ..kernels import ops as kernel_ops
@@ -126,7 +127,10 @@ def _d2_flat_res(ds, ra: np.ndarray, rb: np.ndarray, gg: np.ndarray,
                  anch32: np.ndarray) -> torch.Tensor:
     """Enqueue one flat resident-pair distance gather.  Anchors are
     gathered per element on the host.  Returns the [T] float32 device
-    tensor; the caller blocks on it at its stage's block point."""
+    tensor; the caller blocks on it at its stage's block point.  Every
+    element ships as it is (no padding bucket), so the flat counters'
+    ``bucket_elems`` equals ``elems``."""
+    obs.note_flat_dispatch("res", len(ra), len(ra))
     av = np.ascontiguousarray(anch32[gg], dtype=np.float32)
     return kernel_ops.pairwise_d2_flat_res(
         ds.points_res, _to_dev(ds, ra), _to_dev(ds, rb), _to_dev(ds, av))
@@ -230,6 +234,7 @@ class DeviceState:
         self.alive_res = _to_dev(self, alive)
         self.core_res = _to_dev(self, core)
         self.uploads += 1
+        obs.counter("device_state.uploads.rows").inc()
 
     def refresh_small(self, index) -> None:
         """Re-ship the CSR / merge-edge mirrors (cheap, per mutation)."""
@@ -254,6 +259,7 @@ class DeviceState:
         self.merge_edges_res = _to_dev(self, edges)
         self.n_edges = e
         self.uploads += 1
+        obs.counter("device_state.uploads.small").inc()
 
     def mark_dead(self, rows: np.ndarray) -> None:
         """In-place tombstone of resident rows (delete stage 1)."""
@@ -263,6 +269,7 @@ class DeviceState:
         self.alive_res.index_fill_(0, idx, False)
         self.core_res.index_fill_(0, idx, False)
         self.in_place += 1
+        obs.counter("device_state.donations").inc()
 
     def flip_core(self, rows: np.ndarray, value: bool) -> None:
         """In-place core-flag update (core recompute flips)."""
@@ -271,6 +278,7 @@ class DeviceState:
         idx = _to_dev(self, np.asarray(rows, np.int64))
         self.core_res.index_fill_(0, idx, bool(value))
         self.in_place += 1
+        obs.counter("device_state.donations").inc()
 
     # -- differential pinning ---------------------------------------------
 
@@ -363,6 +371,7 @@ def predict_device_async(index, ds, q: np.ndarray,
     rr_flat = rows[_expand(offs, csz)]
     qo_flat = np.repeat(np.arange(m), csz)        # sorted segment ids
     av = np.repeat(anch32[group_of], csz, axis=0)  # per-element anchors
+    obs.note_flat_dispatch("predict", T, T)
     d2dev = kernel_ops.pairwise_d2_flat(
         ds.points_res, _to_dev(ds, qa), _to_dev(ds, rr_flat),
         _to_dev(ds, qo_flat), _to_dev(ds, av))

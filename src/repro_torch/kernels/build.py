@@ -19,6 +19,10 @@ callers that want every kernel ready up front.
 The build directory is ``build/repro_torch`` at the root of the
 checkout (``REPRO_TORCH_BUILD_DIR`` overrides it for an installed
 package whose directory is not writable).
+
+Listeners added with :func:`add_listener` hear of every compile
+(``("compile", seconds=...)``, the compiler's wall time) and every
+library load (``("load",)``); ``repro_torch.obs`` counts them.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +47,17 @@ SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LISTENERS: List[Callable[..., None]] = []
+
+
+def add_listener(fn: Callable[..., None]) -> None:
+    """Call ``fn(event, **info)`` on every compile and library load."""
+    _LISTENERS.append(fn)
+
+
+def _notify(event: str, **info: Any) -> None:
+    for fn in _LISTENERS:
+        fn(event, **info)
 
 
 def build_dir() -> Path:
@@ -109,19 +125,21 @@ def log_path(name: str) -> Path:
 def _start(name: str, src: Optional[Path] = None,
            like: Optional[str] = None):
     """Start nvcc for one source unless its library exists.  Returns
-    (process or None, temporary output, final library path)."""
+    (process or None, temporary output, final library path, start
+    time)."""
     src, lib = _target(name, src, like)
+    t0 = time.perf_counter()
     if lib.exists():
-        return None, None, lib
+        return None, None, lib, t0
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
         [_nvcc(), *flags(like or name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, lib
+    return proc, tmp, lib, t0
 
 
-def _finish(name: str, proc, tmp, lib) -> Path:
+def _finish(name: str, proc, tmp, lib, t0: float) -> Path:
     if proc is None:
         return lib
     out, _ = proc.communicate()
@@ -130,6 +148,7 @@ def _finish(name: str, proc, tmp, lib) -> Path:
                            f"(exit {proc.returncode}):\n{out}")
     lib.with_suffix(".log").write_text(out)
     os.replace(tmp, lib)          # atomic: a reader never sees half a file
+    _notify("compile", name=name, seconds=time.perf_counter() - t0)
     return lib
 
 
@@ -137,14 +156,14 @@ def build_all() -> Dict[str, Path]:
     """Compile every source of ``csrc/`` that has no library yet, one
     compiler process per source, all running together."""
     started = [(name, *_start(name)) for name in sources()]
-    return {name: _finish(name, proc, tmp, lib)
-            for name, proc, tmp, lib in started}
+    return {name: _finish(name, *rest) for name, *rest in started}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(_finish(name, *_start(name))))
+        _notify("load", name=name)
     return _LIBS[name]
 
 
@@ -155,4 +174,5 @@ def load_source(src, name: str, like: str) -> ctypes.CDLL:
     in one process."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(_finish(name, *_start(name, src, like))))
+        _notify("load", name=name)
     return _LIBS[name]

@@ -72,6 +72,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import build, ref
 
 LAUNCHES: Dict[str, int] = {"eps_count": 0, "row_min": 0,
@@ -226,6 +227,7 @@ def pairwise_d2_flat(points_res: torch.Tensor, qa: torch.Tensor,
     [T, d] each element's cell anchor, so the subtraction runs on
     stencil-scale coordinates.  The caller reduces the distances per
     segment.  Plain gather-and-reduce, as in the reference (no kernel)."""
+    obs.counter("kernels.dispatch.pairwise_d2_flat").inc()
     diff = (points_res[rr] - av) - qa[qo]
     return (diff * diff).sum(dim=1)
 
@@ -235,6 +237,7 @@ def pairwise_d2_flat_res(points_res: torch.Tensor, ra: torch.Tensor,
     """:func:`pairwise_d2_flat` with both operands resident: ``ra`` /
     ``rb`` [T] int64 pick the two rows of each flat element, both
     re-centred by the same element anchor ``av`` [T, d]."""
+    obs.counter("kernels.dispatch.pairwise_d2_flat_res").inc()
     diff = (points_res[ra] - av) - (points_res[rb] - av)
     return (diff * diff).sum(dim=1)
 
