@@ -69,6 +69,33 @@ result line) as soon as a phase fails:
            trace goes to ``build/chip_smoke_server_trace.json``.  Then
            the stream's predicts again on A with tracing off (no event
            recorded) and on, their median step seconds side by side
+  sharded  the fit's points in ``SHARDS`` = 4 slab shards on the one card:
+           ``cluster(..., engine="distributed", n_shards=4)`` cold (the
+           path's first counted run), warm with the final caps, staged
+           under tracing (``halo_exchange`` / ``local_cluster``, each
+           shard's pipeline timed apart / ``reconcile``), and on the plain
+           plane (labels, core flags, grid rows and owning shards equal
+           to the kernel plane's); held to the single-device fit (core
+           flags equal, the core points' partition equal, every other
+           label equal under the partition map or a contested border,
+           recomputed in float64 on the card); ``fit_sharded(...,
+           engine="distributed")`` served the serve phase's mixed batches
+           and eight of ``_queries_slab_band`` in host and kernel mode
+           (host held to the float64 rule over every core, kernel equal
+           to host on every decidable query, single-label answers equal
+           to the unsharded index's under the partition map); the first
+           two steps of the serve phase's mutation stream on the sharded
+           index and on the unsharded one restored from the serve phase's
+           snapshot before its stream, a split of the fullest shard and a
+           merge of the emptiest adjacent pair, the same checks again, a
+           snapshot round trip; last, the stream's other three steps, then
+           server C (kernel mode, ``RebalancePolicy(period=4)``) on phase
+           ``server``'s stream (the path's second counted run), each
+           request's labels equal to server A's as a partition and the
+           index equal to A's after it.  The path's launches are those
+           two runs', each with the counts set to 0 just before it and
+           read just after; the fit must launch both distance kernels,
+           server C ``row_min_batch``
   guard_band  the two guard-band kernels (the same warp-per-task kernel
            as the distance kernels, kinds band and min2) against their
            plain versions on the largest kernel-mode predict call, on the
@@ -113,7 +140,7 @@ result line) as soon as a phase fails:
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
-server phase and the lm phase.
+server phase, the sharded phase and the lm phase.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -175,10 +202,17 @@ SERVER_INSERT = 204
 SERVER_DELETE = 104
 SERVER_SLOTS = 8
 SERVER_QUERY_CAP = 2048
+# phase sharded: slab shards of the distributed fit, all on the one card
+SHARDS = 4
+
+
+def _plain(x):
+    """numpy scalars and arrays as JSON values."""
+    return x.tolist() if isinstance(x, (np.ndarray, np.generic)) else str(x)
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields}, default=_plain), flush=True)
 
 
 def require(cond, msg: str) -> None:
@@ -886,17 +920,19 @@ def check_host_rule(q64, host, near, cpts_np, clab_np, eps2):
 
 
 def mutation_step(plane, ds, step, forced, rng, pts, sc, n_ins, n_del,
-                  n_pred, drift, step_s, split):
+                  n_pred, drift, step_s, split, record):
     """One step of the serve bench's mix on both planes: insert, delete,
     predict; the planes' stats, states, answers and the resident mirror
-    must be equal afterwards.  Appends the step's seconds and split;
-    returns the mirror check."""
+    must be equal afterwards.  Appends the step's seconds and split, and
+    its (insert batch, delete ids, queries) to ``record``; returns the
+    mirror check."""
     from repro_torch.data.scenarios import _insert_drift, _queries_mixed
     nonsemantic = {"dist_evals", "t_total", "t_pack", "t_kernel",
                    "band_fallback"}
     ins = _insert_drift(rng, pts, sc, n_ins, drift, MUTATION_STEPS)
     kill = rng.choice(plane["host"].arrival_live(), n_del, replace=False)
     q = _queries_mixed(rng, pts, sc, n_pred)
+    record.append((ins, kill, q))
     got = {}
     for name, ix in plane.items():
         runs0 = copy.deepcopy(ds.stage_runs)
@@ -941,7 +977,10 @@ def mutation_step(plane, ds, step, forced, rng, pts, sc, n_ins, n_del,
 def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     """Fit with the index, predict in three modes, the mutation stream
     on two planes, a snapshot round trip.  Returns (summary, launches
-    of this path, the largest kernel-mode predict call, the index)."""
+    of this path, the largest kernel-mode predict call, the index, and
+    for phase ``sharded``: the index's snapshot before the mutation
+    stream, the query batches with their host-mode labels, and the
+    stream's steps)."""
     from repro_torch.data.scenarios import _queries_mixed, get_scenario
     from repro_torch.engine import cluster, registry
     from repro_torch.index import GritIndex, device_state
@@ -1072,6 +1111,8 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     predict_launches = dict(ops.LAUNCHES)
 
     # ---- mutation stream: host-serving index vs device-resident twin ----
+    fit_snap = {k: np.array(v, copy=True)
+                for k, v in idx.snapshot().items()}
     plane = {"host": GritIndex.restore(idx.snapshot()), "device": idx}
     require(plane["host"].device_state is None, "the host plane has a "
             "resident state")
@@ -1082,7 +1123,7 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     # the host float64 twin, with the seconds of each route
     split = {"host": [], "device": []}
     ds = idx.device_state
-    mirror = []
+    mirror, record = [], []
     # the four steps of the mix under the default gates, then one more
     # with the gates at 0, so that every write-half stage of the resident
     # plane runs its flat gather on the card at least once
@@ -1094,7 +1135,7 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
                 device_state.MIN_FLAT_T = device_state.EDGE_MIN_FLAT_T = 0
             mirror.append(mutation_step(plane, ds, step, forced, rng, pts, sc,
                                         n_ins, n_del, n_pred, drift, step_s,
-                                        split))
+                                        split, record))
     finally:
         device_state.MIN_FLAT_T, device_state.EDGE_MIN_FLAT_T = gates
     for st in ("cores", "edges", "border"):
@@ -1141,7 +1182,9 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
                       mirror_matches=all(all(m.values()) for m in mirror)),
         snapshot=dict(bytes=nbytes, save_s=save_s, load_s=load_s,
                       roundtrip=True))
-    return summary, launches, captured[0], idx
+    carry = dict(fit_snap=fit_snap, batches=batches, host=host,
+                 stream=record)
+    return summary, launches, captured[0], idx, carry
 
 
 # --------------------------------------------------------------------------
@@ -1222,7 +1265,8 @@ def server_phase(index, pts, eps, seed, smi):
     for that run (Chrome trace to ``build/``), then the stream's
     predicts again on A with tracing off and on.  Returns (the phase
     line's fields, launches of the server path, the largest
-    ``row_min_batch`` call of B)."""
+    ``row_min_batch`` call of B, and for phase ``sharded``: the script,
+    A's labels per request and A's index after the stream)."""
     from repro_torch import obs
     from repro_torch.data.scenarios import get_scenario
     from repro_torch.index import GritIndex
@@ -1365,7 +1409,421 @@ def server_phase(index, pts, eps, seed, smi):
         rerun_steps=len(step_s["on"]) // 2, rerun_events_off=0,
         rerun_events_on=n_on, trace=trace_path,
         phase_s=time.perf_counter() - t_phase)
-    return fields, launches, captured[0]
+    carry = dict(script=script, labels=[r.labels for r in done_a],
+                 kinds=[r.kind for r in done_a],
+                 live=idx_a.arrival_live(), final=idx_a.labels_arrival(),
+                 core=idx_a.core_arrival())
+    return fields, launches, captured[0], carry
+
+
+# --------------------------------------------------------------------------
+# sharded: the distributed fit and the sharded serving plane
+# --------------------------------------------------------------------------
+
+def label_map(a, b, mask):
+    """Labels ``a`` -> labels ``b`` over the rows of ``mask`` as an
+    array indexed by ``a`` (-1 where ``a`` has no row there); None when
+    the two labelings do not induce the same partition of those rows."""
+    if not mask.any():
+        return np.full(1, -1, np.int64)
+    a, b = np.asarray(a, np.int64)[mask], np.asarray(b, np.int64)[mask]
+    if ((a < 0) != (b < 0)).any():
+        return None
+    m = a >= 0
+    key = np.unique(a[m] * (int(b.max(initial=0)) + 1) + b[m])
+    pa, pb = np.divmod(key, int(b.max(initial=0)) + 1)
+    if len(np.unique(pa)) != len(pa) or len(np.unique(pb)) != len(pb):
+        return None
+    out = np.full(int(max(a.max(initial=0), 0)) + 1, -1, np.int64)
+    out[pa] = pb
+    return out
+
+
+def mapped(lookup, labels):
+    """``lookup[labels]`` with -1 passing through (and -2 for a label
+    the map has no entry for)."""
+    labels = np.asarray(labels, np.int64)
+    ok = (labels >= 0) & (labels < len(lookup))
+    out = np.where(labels < 0, -1, -2)
+    out[ok] = lookup[labels[ok]]
+    return out
+
+
+def contested_ok(pts64, core_t, lab_t, rows, got, eps2):
+    """For non-core rows whose label differs from the reference's under
+    the partition map: each must lie within eps of cores of two or more
+    clusters (a contested border, which DBSCAN leaves to the order of
+    the scan) and within eps of a core of its own cluster (``got``)."""
+    cpts, clab = pts64[core_t], lab_t[core_t]
+    bad = 0
+    for s in range(0, len(rows), 64):
+        r = torch.as_tensor(rows[s:s + 64], device=pts64.device)
+        g = torch.as_tensor(got[s:s + 64], device=pts64.device)
+        d2 = ((pts64[r][:, None, :] - cpts[None, :, :]) ** 2).sum(-1)
+        inside = d2 <= eps2
+        big = torch.iinfo(clab.dtype).max
+        lo = torch.where(inside, clab[None, :], big).min(dim=1).values
+        hi = torch.where(inside, clab[None, :], -1).max(dim=1).values
+        own = (inside & (clab[None, :] == g[:, None])).any(dim=1)
+        bad += int((~((lo != hi) & own)).sum().item())
+    return bad
+
+
+def sharded_checks(sidx, unsharded, batches, eps, dev, lookup=None):
+    """Host and kernel predict of each batch on the sharded index against
+    the float64 rule over every core of it and, where the rule allows
+    one label only, against the unsharded index's host label under the
+    map of the two partitions (built from the two indexes' core labels
+    when ``lookup`` is None).  Returns the readings, summed over the
+    batches (per batch for the seconds)."""
+    eps2 = eps * eps
+    core = sidx.core_arrival()
+    require(np.array_equal(sidx.arrival_live(), unsharded.arrival_live())
+            and np.array_equal(core, unsharded.core_arrival()),
+            "the sharded and the unsharded index hold other points or "
+            "other core flags")
+    lab_s = sidx.labels_arrival()
+    if lookup is None:
+        lookup = label_map(lab_s, unsharded.labels_arrival(), core)
+        require(lookup is not None, "the sharded and the unsharded index "
+                "partition the core points differently")
+    cpts_np = unsharded.points_arrival()[core]
+    clab_np = lab_s[core]
+    cpts, clab = (torch.as_tensor(cpts_np, device=dev),
+                  torch.as_tensor(clab_np, device=dev))
+    tot = dict(queries=0, rule_violations=0, decided_on_host=0,
+               exact_ties=0, single_label=0, unsharded_mismatches=0,
+               kernel_decidable=0, kernel_mismatches_decidable=0,
+               kernel_mismatches_all=0, multi_routed=0,
+               owned_per_shard=np.zeros(sidx.num_shards, np.int64),
+               host_s=[], kernel_s=[])
+    for q in batches:
+        st_h, st_k = {}, {}
+        t0 = time.perf_counter()
+        host = sidx.predict(q, mode="host", stats=st_h)
+        tot["host_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        kern = sidx.predict(q, mode="kernel", stats=st_k)
+        torch.cuda.synchronize()
+        tot["kernel_s"].append(time.perf_counter() - t0)
+        near = nearest_cores(q, cpts, clab)
+        bad_rule, ambiguous = check_host_rule(q, host, near, cpts_np,
+                                              clab_np, eps2)
+        require(bad_rule == 0, f"{bad_rule} sharded host-mode labels break "
+                f"the nearest-core rule")
+        dmin = np.sqrt(near["dmin"])
+        decidable = (np.abs(dmin - eps) > 1e-5 * eps) & \
+            (near["lo5"] == near["hi5"])
+        mism = int((kern[decidable] != host[decidable]).sum())
+        require(mism == 0, f"sharded kernel-mode predict differs from "
+                f"host mode on {mism} decidable queries")
+        one = ~((near["lo"] != near["hi"])
+                | (np.abs(near["dmin"] - eps2) <= 1e-12 * eps2))
+        want = unsharded.predict(q[one], mode="host")
+        off = int((mapped(lookup, host[one]) != want).sum())
+        require(off == 0, f"{off} sharded labels differ from the "
+                f"unsharded index's under the partition map")
+        for k, v in (("queries", len(q)), ("decided_on_host", ambiguous),
+                     ("exact_ties", int((near["lo"] != near["hi"]).sum())),
+                     ("single_label", int(one.sum())),
+                     ("kernel_decidable", int(decidable.sum())),
+                     ("kernel_mismatches_all", int((kern != host).sum())),
+                     ("multi_routed", st_h["multi_routed"])):
+            tot[k] += int(v)
+        tot["owned_per_shard"] += np.asarray(st_h["owned_per_shard"])
+    tot["owned_per_shard"] = tot["owned_per_shard"].tolist()
+    for mode in ("host", "kernel"):
+        tot[f"{mode}_queries_per_s"] = \
+            float(np.median([len(q) for q in batches])
+                  / np.median(tot[f"{mode}_s"]))
+    return tot
+
+
+def sharded_phase(pts, eps, fit, serve_carry, server_carry, seed, dev, smi):
+    """The distributed fit in four slab shards on the card (cold, warm,
+    staged under tracing, the plain plane), held to the single-device
+    fit; the sharded index built by ``fit_sharded`` served in host and
+    kernel mode against the float64 rule and the unsharded index;
+    mutations, a split and a merge against an unsharded twin, a
+    snapshot round trip; last, server C (kernel mode, rebalancing) on
+    phase ``server``'s stream, held to server A.  Returns (the phase
+    line's fields, the launches of the sharded path's two driven runs --
+    the cold distributed fit and server C's stream, each counted with
+    the counts set to 0 just before it and read just after --, every
+    launch of the phase).  Leaves the counts at 0."""
+    from repro_torch import obs
+    from repro_torch.core import sync
+    from repro_torch.core.device_dbscan import GritCaps
+    from repro_torch.data.scenarios import _queries_slab_band, get_scenario
+    import repro_torch.dist.step as dist_step
+    from repro_torch.dist import (ClusterCaps, RebalancePolicy,
+                                  census_halo_cap, distributed_fit,
+                                  slab_cuts)
+    from repro_torch.engine import cluster, estimate_shard_caps
+    from repro_torch.index import GritIndex, ShardedGritIndex, fit_sharded
+    from repro_torch.kernels import ops
+    from repro_torch.obs import view
+    from repro_torch.serve import ClusterServer
+
+    t_phase = time.perf_counter()
+    n = len(pts)
+    shards = SHARDS
+    out = dict(n=n, shards=shards, card=smi)
+    spent = dict.fromkeys(ops.LAUNCHES, 0)   # every launch of the phase
+
+    def settle():
+        """Fold the counts into ``spent`` and set them to 0."""
+        for k, v in ops.LAUNCHES.items():
+            spent[k] += v
+        ops.reset_launches()
+
+    # ---- 1. the distributed fit -----------------------------------------
+    t0 = time.perf_counter()
+    estimate_shard_caps(pts, eps, MIN_PTS, shards, use_kernels=True)
+    census_halo_cap(pts, eps, shards)
+    out["estimate_shard_caps_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    settle()
+    sync.READS["count"] = 0
+    t0 = time.perf_counter()
+    cold = cluster(pts, eps, MIN_PTS, engine="distributed", n_shards=shards)
+    launches_fit = dict(ops.LAUNCHES)
+    settle()
+    torch.cuda.synchronize()
+    out["cold_s"] = time.perf_counter() - t0
+    out["host_reads_cold"] = sync.READS["count"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    require(cold.overflow == (), f"unresolved overflow {cold.overflow}")
+    require(cold.stats["use_kernels"] == (dev.type == "cuda")
+            and cold.stats["devices"] == [str(dev)] * shards,
+            f"the fit ran {cold.stats}")
+    last = cold.attempts[-1]["caps"]
+    caps = ClusterCaps(grit=GritCaps(**{k: v for k, v in last.items()
+                                        if k != "halo_cap"}),
+                       halo_cap=last["halo_cap"])
+    out["attempts"] = [list(a["overflow"]) for a in cold.attempts]
+    out["caps"] = dict(last)
+    sync.READS["count"] = 0
+    t0 = time.perf_counter()
+    warm = cluster(pts, eps, MIN_PTS, engine="distributed", n_shards=shards,
+                   caps=caps)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    out["host_reads_warm"] = sync.READS["count"]
+    require(np.array_equal(warm.labels, cold.labels)
+            and np.array_equal(warm.core, cold.core),
+            "a warm distributed fit gave other labels")
+    # staged under tracing: the stages on the synchronised host clock,
+    # each shard's local pipeline timed apart
+    real_dbscan = dist_step.device_dbscan
+    shard_s = []
+
+    def timed_dbscan(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real_dbscan(*a, **k)
+        torch.cuda.synchronize()
+        shard_s.append(time.perf_counter() - t)
+        return r
+
+    was = obs.enabled()
+    tracer = obs.enable(clear=True)
+    dist_step.device_dbscan = timed_dbscan
+    try:
+        t0 = time.perf_counter()
+        kfit = distributed_fit(pts, eps, MIN_PTS, caps=caps,
+                               n_shards=shards, traced=True)
+        out["traced_s"] = time.perf_counter() - t0
+        events = tracer.snapshot_events()
+    finally:
+        dist_step.device_dbscan = real_dbscan
+        obs.disable()
+        if was:
+            obs.enable()
+    agg = view.span_aggregates(events)
+    out["stage_s"] = {k.rsplit(".", 1)[-1]: agg[k]["total_us"] / 1e6
+                      for k in sorted(agg) if k.startswith("dist.fit.")}
+    out["stage_s"]["local_cluster_per_shard"] = shard_s
+    reg = obs.registry().snapshot()
+    out["halo"] = {k: (v["value"] if isinstance(v, dict) else v)
+                   for k, v in reg.items()
+                   if k.startswith(("dist.halo.", "dist.pack."))}
+    _, cut_idx, cut_coords = slab_cuts(pts, eps, shards)
+    out["points_per_shard"] = np.diff(np.concatenate(
+        [[0], cut_idx, [n]])).tolist()
+    out["cut_coords"] = cut_coords.tolist()
+    require(np.array_equal(kfit.labels, cold.labels), "the traced fit "
+            "gave other labels")
+    t0 = time.perf_counter()
+    pfit = distributed_fit(pts, eps, MIN_PTS, caps=dataclasses.replace(
+        caps, grit=dataclasses.replace(caps.grit, use_kernels=False)),
+        n_shards=shards, traced=False)
+    torch.cuda.synchronize()
+    out["plain_plane_s"] = time.perf_counter() - t0
+    for f in ("labels", "core", "point_grid", "shard_of"):
+        require(np.array_equal(getattr(kfit, f), getattr(pfit, f)),
+                f"the plain plane gives another {f} than the kernel plane")
+    del pfit
+    # ---- 2. against the single-device fit -------------------------------
+    require(np.array_equal(cold.core, fit.core),
+            "core flags differ from the single-device fit")
+    lookup = label_map(cold.labels, fit.labels, fit.core)
+    require(lookup is not None, "the core points' partition differs from "
+            "the single-device fit's")
+    require(np.array_equal(cold.labels == -1, fit.labels == -1),
+            "the noise differs from the single-device fit's")
+    got = mapped(lookup, cold.labels)
+    rows = np.flatnonzero(got != fit.labels)
+    require(not fit.core[rows].any(), "a core point is labelled otherwise")
+    pts64 = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+    bad = contested_ok(pts64, torch.as_tensor(fit.core, device=dev),
+                       torch.as_tensor(fit.labels, device=dev), rows,
+                       got[rows], eps * eps)
+    require(bad == 0, f"{bad} border labels differ from the single-device "
+            f"fit's without being contested")
+    del pts64
+    out["vs_single_device"] = dict(core_equal=True, partition_equal=True,
+                                   clusters=int(len(np.unique(
+                                       cold.labels[cold.labels >= 0]))),
+                                   contested_borders_differing=int(
+                                       len(rows)))
+    # ---- 3. sharded serving ---------------------------------------------
+    t0 = time.perf_counter()
+    sidx = fit_sharded(pts, eps, MIN_PTS, n_shards=shards,
+                       engine="distributed", caps=caps)
+    out["fit_sharded_s"] = time.perf_counter() - t0
+    require(sidx.num_shards == shards, "fit_sharded built "
+            f"{sidx.num_shards} shards")
+    t0 = time.perf_counter()
+    unsharded = GritIndex.restore({k: np.array(v, copy=True) for k, v in
+                                   serve_carry["fit_snap"].items()})
+    out["unsharded_restore_s"] = time.perf_counter() - t0
+    sc = dataclasses.replace(get_scenario("blobs-3d"), eps=eps, n=n)
+    rng = np.random.default_rng(seed + 50_000)
+    mixed = np.concatenate(serve_carry["batches"])
+    band = np.concatenate([_queries_slab_band(rng, pts, sc, SERVE_BATCH)
+                           for _ in range(SERVE_BATCHES)])
+    require(np.array_equal(unsharded.predict(mixed, mode="host"),
+                           serve_carry["host"]),
+            "the restored unsharded index answers otherwise than phase "
+            "serve's")
+    out["serving"] = {
+        name: sharded_checks(
+            sidx, unsharded, [q[i:i + SERVE_BATCH]
+                              for i in range(0, len(q), SERVE_BATCH)],
+            eps, dev, lookup)
+        for name, q in (("mixed", mixed), ("slab_band", band))}
+    # ---- 4. mutations and topology --------------------------------------
+    stream = serve_carry["stream"]
+    t0 = time.perf_counter()
+    for shard in sidx.shards:
+        shard.ensure_merge_graph()
+    out["merge_graph_s"] = time.perf_counter() - t0
+    steps = []
+    for i, (ins, kill, q) in enumerate(stream[:2]):
+        row = {}
+        for tag, ix in (("sharded", sidx), ("unsharded", unsharded)):
+            t0 = time.perf_counter()
+            si = ix.insert(ins)
+            sd = ix.delete(kill)
+            ix.predict(q, mode="host")
+            row[tag] = dict(s=time.perf_counter() - t0,
+                            insert_s=si["t_total"], delete_s=sd["t_total"],
+                            deleted=sd["deleted"],
+                            newly_core=si["newly_core"],
+                            demoted=sd["demoted"])
+        for k in ("deleted", "newly_core", "demoted"):
+            require(row["sharded"][k] == row["unsharded"][k],
+                    f"mix step {i}: {k} differs from the unsharded twin")
+        steps.append(row)
+    counts = [len(g) for g in sidx.own_gids]
+    k_split = int(np.argmax(counts))
+    t0 = time.perf_counter()
+    split = sidx.split_shard(k_split)
+    split_s = time.perf_counter() - t0
+    counts = np.asarray([len(g) for g in sidx.own_gids])
+    k_merge = int(np.argmin(counts[:-1] + counts[1:]))
+    t0 = time.perf_counter()
+    merge = sidx.merge_shards(k_merge)
+    merge_s = time.perf_counter() - t0
+    q4 = np.concatenate([serve_carry["batches"][0], band[:SERVE_BATCH]])
+    after_ops = sharded_checks(sidx, unsharded, [q4], eps, dev)
+    t0 = time.perf_counter()
+    snap = {k: np.array(v, copy=True) for k, v in sidx.snapshot().items()}
+    snap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ShardedGritIndex.restore(snap)
+    restore_s = time.perf_counter() - t0
+    require(np.array_equal(back.predict(q4, mode="host"),
+                           sidx.predict(q4, mode="host"))
+            and np.array_equal(back.labels_arrival(), sidx.labels_arrival()),
+            "the restored sharded index answers otherwise")
+    del back, snap, unsharded
+    out["mutation"] = dict(
+        steps=steps, split=dict(shard=k_split, cut=split["cut"],
+                                n_left=split["n_left"],
+                                n_right=split["n_right"], s=split_s),
+        merge=dict(shard=k_merge, cut=merge["cut"],
+                   n_merged=merge["n_merged"], s=merge_s),
+        shards_after=sidx.num_shards, after_ops=after_ops,
+        snapshot_s=snap_s, restore_s=restore_s, roundtrip=True)
+    # ---- 5. server C on phase server's stream ----------------------------
+    # the rest of phase serve's stream, so that C starts where A did
+    t0 = time.perf_counter()
+    for ins, kill, _ in stream[2:]:
+        sidx.insert(ins)
+        sidx.delete(kill)
+    out["catch_up_s"] = time.perf_counter() - t0
+    srv = ClusterServer(sidx, mode="kernel",
+                        rebalance=RebalancePolicy(period=4),
+                        slots=SERVER_SLOTS, query_cap=SERVER_QUERY_CAP)
+    tracer = obs.enable(clear=True)
+    try:
+        settle()
+        t0 = time.perf_counter()
+        done = serve_script(srv, server_carry["script"])
+        launches_server = dict(ops.LAUNCHES)
+        settle()
+        run_s = time.perf_counter() - t0
+        events = tracer.snapshot_events()
+    finally:
+        obs.disable()
+        if was:
+            obs.enable()
+    require(len(done) == len(server_carry["labels"]), "server C did not "
+            "answer every request")
+    diff = [r.rid for r, want, kind in zip(done, server_carry["labels"],
+                                           server_carry["kinds"])
+            if kind == "predict" and label_map(
+                r.labels, want, np.ones(len(want), bool)) is None]
+    require(not diff, f"server C's labels differ from server A's as a "
+            f"partition on requests {diff}")
+    require(np.array_equal(sidx.arrival_live(), server_carry["live"])
+            and np.array_equal(sidx.core_arrival(), server_carry["core"])
+            and label_map(sidx.labels_arrival(), server_carry["final"],
+                          server_carry["core"]) is not None,
+            "after the stream, the sharded index differs from server A's")
+    slab = {k: v["value"] for k, v in srv.metrics.snapshot().items()
+            if k.startswith("serve.slab")}
+    out["server_c"] = dict(
+        run_s=run_s, readings=server_readings(srv, events),
+        topology_events=[{k: v for k, v in e.items()}
+                         for e in srv.topology_events],
+        shards=sidx.num_shards, slab_gauges=slab, labels_equal=True)
+    # the sharded path's two driven runs: the fit launches both kernels
+    # (core and border), server C's kernel-mode predicts row_min_batch
+    for k in ("eps_count_batch", "row_min_batch"):
+        require(launches_fit[k] > 0, f"the distributed fit never launched "
+                f"{k}")
+    require(launches_server["row_min_batch"] > 0, "server C's kernel-mode "
+            "predicts never launched row_min_batch")
+    out["launches_fit"] = launches_fit
+    out["launches_server_c"] = launches_server
+    settle()
+    out["launches_phase"] = dict(spent)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, {k: launches_fit[k] + launches_server[k]
+                 for k in launches_fit}, spent
 
 
 # --------------------------------------------------------------------------
@@ -2122,7 +2580,7 @@ def main() -> int:
 
     # ---- serve ----------------------------------------------------------
     before_serve = dict(ops.LAUNCHES)    # serve_phase resets the counts
-    serve, serve_launches, predict_call, index = serve_phase(
+    serve, serve_launches, predict_call, index, serve_carry = serve_phase(
         pts, eps, caps, res.labels, args.seed, dev)
     require(serve_launches["row_min_batch"] > 0,
             "kernel-mode predict never launched row_min_batch")
@@ -2143,7 +2601,7 @@ def main() -> int:
 
     # ---- server ---------------------------------------------------------
     before_server = dict(ops.LAUNCHES)  # server_phase resets the counts
-    server, server_launches, server_call = server_phase(
+    server, server_launches, server_call, server_carry = server_phase(
         index, pts, eps, args.seed, smi)
     # server B's largest kernel-mode predict call against the plain version
     sa_, sb_, svb_ = server_call
@@ -2156,6 +2614,15 @@ def main() -> int:
                                  max_abs_err=err, argmin_mismatches=mism),
          script_s=time.perf_counter() - t_script)
     del server_call, sa_, sb_, svb_
+
+    # ---- sharded ----------------------------------------------------------
+    before_sharded = dict(ops.LAUNCHES)  # sharded_phase resets the counts
+    sharded, sharded_launches, sharded_spent = sharded_phase(
+        pts, eps, res, serve_carry, server_carry, args.seed, dev, smi)
+    emit("sharded", **sharded, launches=sharded_launches,
+         script_s=time.perf_counter() - t_script)
+    del serve_carry, server_carry
+    torch.cuda.empty_cache()
 
     # ---- guard-band kernels ---------------------------------------------
     _, lo2, hi2 = index.device_state.thresholds(index)
@@ -2190,17 +2657,19 @@ def main() -> int:
     emit("lm", **lm, script_s=time.perf_counter() - t_script)
     torch.cuda.empty_cache()
 
-    # launches on the four driven paths (the cold fit, the serve phase,
-    # the server phase, the lm phase's served parts), each counted on its
-    # own run; the distance kernels have no place on the lm path and
-    # flash none on the other three; launches_script also counts the
-    # comparison launches
+    # launches on the five driven paths (the cold fit, the serve phase,
+    # the server phase, the sharded phase's cold distributed fit plus
+    # server C, the lm phase's served parts), each counted on its own
+    # run; the distance kernels have no place on the lm path and flash
+    # none on the other four; launches_script also counts the comparison
+    # launches
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
                       "server": server_launches[name],
+                      "sharded": sharded_launches[name],
                       "lm": lm_launches[name]} for name in REPLACES}
     for name, paths in by_path.items():
-        off = (("fit", "serve", "server") if name == "flash_attention"
-               else ("lm",))
+        off = (("fit", "serve", "server", "sharded")
+               if name == "flash_attention" else ("lm",))
         require(all(paths[p] == 0 for p in off),
                 f"{name} launched on a path it has no place on: {paths}")
     extra = ("kernel_route", "graph_ms", "parent_ms", "parent_graph_ms")
@@ -2210,6 +2679,8 @@ def main() -> int:
                     launches_by_path=by_path[r["name"]],
                     launches_script=(before_serve[r["name"]]
                                      + before_server[r["name"]]
+                                     + before_sharded[r["name"]]
+                                     + sharded_spent[r["name"]]
                                      + after_band[r["name"]]
                                      + lm_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2226,6 +2697,8 @@ def main() -> int:
         launches_by_path=by_path["flash_attention"],
         launches_script=(before_serve["flash_attention"]
                          + before_server["flash_attention"]
+                         + before_sharded["flash_attention"]
+                         + sharded_spent["flash_attention"]
                          + flash_compare + lm_launches["flash_attention"]),
         shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
         ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],

@@ -32,9 +32,10 @@ layer fit-once / serve-many traffic on top of the catalogue: a base fit
 set plus held-out query batches (near-cluster, empty-grid,
 outside-the-fitted-box and exact-eps-boundary queries) and streaming
 micro-batch inserts that drift outside the fitted bounding box.
-``_queries_slab_band`` / ``_insert_slab_drift`` aim the same traffic at
-slab cut bands (the distributed-serving catalogue that uses them comes
-with the sharded index).
+``dist_serving_scenarios()`` are the sharded-serving variants: traffic
+engineered at the slab cut bands (queries that must consult two shards,
+inserts whose blobs straddle a cut and whose merges need cross-shard
+re-reconciliation).
 Churn workloads (:class:`ChurnScenario`, ``churn_scenarios()``) add the
 delete direction: interleaved insert/delete op streams at DBSCAN's
 non-monotone spots (bridge cuts that split a cluster, thinning that
@@ -590,6 +591,43 @@ def serving_scenarios() -> List[ServingScenario]:
             query_gen=_queries_mixed, insert_gen=_insert_drift,
             tags=("serving", "drift")),
     ]
+
+
+def dist_serving_scenarios() -> List[ServingScenario]:
+    """Distributed-serving workloads: slab-spanning fit sets with
+    query/insert traffic engineered at the cut bands (the sharded
+    index's routing and re-reconciliation paths)."""
+    base = scenario_map()
+    return [
+        ServingScenario(
+            name="slab-serve-2d", base=base["cross-slab-2d"],
+            n_query=160, n_insert=40,
+            query_gen=_queries_slab_band, insert_gen=_insert_slab_drift,
+            tags=("serving", "dist-serving")),
+        ServingScenario(
+            name="slab-serve-3d", base=base["cross-slab-3d"],
+            n_query=140, n_insert=36,
+            query_gen=_queries_slab_band, insert_gen=_insert_slab_drift,
+            tags=("serving", "dist-serving")),
+        ServingScenario(
+            name="slab-blobs-2d", base=base["blobs-2d"],
+            n_query=120, n_insert=40, insert_steps=3,
+            query_gen=_queries_slab_band, insert_gen=_insert_slab_drift,
+            tags=("serving", "dist-serving")),
+    ]
+
+
+def dist_serving_scenario_map() -> Dict[str, ServingScenario]:
+    return {sc.name: sc for sc in dist_serving_scenarios()}
+
+
+def get_dist_serving_scenario(name: str) -> ServingScenario:
+    m = dist_serving_scenario_map()
+    if name not in m:
+        raise KeyError(
+            f"unknown distributed serving scenario {name!r}; "
+            f"known: {sorted(m)}")
+    return m[name]
 
 
 def serving_scenario_map() -> Dict[str, ServingScenario]:

@@ -11,13 +11,13 @@ from .registry import (available_engines, cluster, engine_descriptions,
                        get_engine, register_engine, resolve_auto)
 from .adaptive import (CapOverflowError, adaptive_device_dbscan,
                        adaptive_loop, candidate_census, estimate_caps,
-                       grow_caps, grid_stats, resolve_device,
-                       stencil_neighbor_bound)
+                       estimate_shard_caps, grow_caps, grid_stats,
+                       resolve_device, stencil_neighbor_bound)
 
 __all__ = [
     "ClusterResult", "cluster", "available_engines", "engine_descriptions",
     "get_engine", "register_engine", "resolve_auto",
     "CapOverflowError", "adaptive_device_dbscan", "adaptive_loop",
-    "candidate_census", "estimate_caps", "grow_caps", "grid_stats",
-    "resolve_device", "stencil_neighbor_bound",
+    "candidate_census", "estimate_caps", "estimate_shard_caps",
+    "grow_caps", "grid_stats", "resolve_device", "stencil_neighbor_bound",
 ]

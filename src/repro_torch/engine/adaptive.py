@@ -253,6 +253,67 @@ def estimate_caps(points: np.ndarray, eps: float, min_pts: int,
                             margin, extra_grids, use_kernels)
 
 
+def _shard_point_sets(points: np.ndarray, eps: float, n_shards: int):
+    """The exact per-shard point set of a distributed fit: the shard's
+    own slab plus the 2*eps boundary bands its neighbors ship as ghosts
+    (the same selection predicate as ``repro_torch.dist.halo.halo_buffer``)."""
+    from ..dist.sharding import slab_cuts
+    pts = np.asarray(points, np.float64)
+    order, cut_idx, _ = slab_cuts(pts, eps, n_shards)
+    starts = np.concatenate([[0], cut_idx]).astype(np.int64)
+    ends = np.concatenate([cut_idx, [len(pts)]]).astype(np.int64)
+    spts = pts[order]
+
+    def ship(s: int, side: str) -> np.ndarray:
+        seg = spts[starts[s]:ends[s]]
+        if not len(seg):
+            return seg
+        x0 = seg[:, 0]
+        if side == "hi":
+            return seg[x0 >= x0.max() - 2 * eps]
+        return seg[x0 <= x0.min() + 2 * eps]
+
+    for s in range(n_shards):
+        parts = [spts[starts[s]:ends[s]]]
+        if s > 0:
+            parts.append(ship(s - 1, "hi"))
+        if s < n_shards - 1:
+            parts.append(ship(s + 1, "lo"))
+        sub = np.concatenate(parts)
+        if len(sub):
+            yield sub
+
+
+def estimate_shard_caps(points: np.ndarray, eps: float, min_pts: int,
+                        n_shards: int, margin: float = 1.25,
+                        extra_grids: int = 2,
+                        use_kernels: bool = False) -> GritCaps:
+    """Per-shard ``GritCaps`` for the distributed fit.
+
+    Global grid statistics are a valid but wasteful bound for the
+    shard-local pipelines: slab cuts land on grid lines, so the worst
+    *shard's* grid count is roughly ``1 / n_shards`` of the global one.
+    This runs :func:`grid_stats` / :func:`candidate_census` per shard
+    over the exact per-shard point set (own slab + the neighbors' 2*eps
+    ghost bands) and takes the max over shards -- one set of caps that
+    every shard shares, sized to the worst shard instead of the
+    union."""
+    pts = np.asarray(points, np.float64)
+    n, d = pts.shape
+    if n_shards <= 1:
+        return estimate_caps(pts, eps, min_pts, margin=margin,
+                             extra_grids=extra_grids,
+                             use_kernels=use_kernels)
+    num_grids, max_occ, cand_max, n_max = 1, 1, 1, 1
+    for sub in _shard_point_sets(pts, eps, n_shards):
+        g, o = grid_stats(sub, eps)
+        c = candidate_census(sub, eps, min_pts)
+        num_grids, max_occ = max(num_grids, g), max(max_occ, o)
+        cand_max, n_max = max(cand_max, c), max(n_max, len(sub))
+    return _caps_from_stats(n_max, d, num_grids, max_occ, cand_max,
+                            margin, extra_grids, use_kernels)
+
+
 def grow_caps(caps: GritCaps, overflowed: Tuple[str, ...], *,
               n: int, d: int, growth: float = 2.0) -> GritCaps:
     """Grow exactly the caps named in ``overflowed`` (an

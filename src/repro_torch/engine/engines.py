@@ -17,6 +17,11 @@ device-kernels
            distances go through the hand-written CUDA kernels
            ``eps_count_batch`` / ``row_min_batch`` (see
            ``repro_torch.kernels.ops``).
+distributed
+           slab-sharded: the device pipeline per shard on own + ghost
+           points, halo exchange and global label reconciliation
+           (``repro_torch.dist``), adaptive caps; one device per shard
+           (``devices=``) or ``n_shards`` shards on ``device``.
 ========== =============================================================
 
 All engines take host numpy points and return
@@ -28,14 +33,18 @@ engines run on the CUDA device unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..core.dbscan import brute_dbscan, grit_dbscan
 from ..core.validate import core_flags
 
-from .adaptive import adaptive_device_dbscan, resolve_device
+from .adaptive import (_pow2_at_least, adaptive_device_dbscan,
+                       adaptive_loop, estimate_shard_caps, grow_caps,
+                       resolve_device)
 from .registry import register_engine
 from .result import ClusterResult
 
@@ -154,3 +163,77 @@ def _device_engine(points, eps, min_pts, **opts) -> ClusterResult:
 def _device_kernels_engine(points, eps, min_pts, **opts) -> ClusterResult:
     opts.setdefault("use_kernels", True)
     return _device_impl(points, eps, min_pts, "device-kernels", **opts)
+
+
+@register_engine("distributed",
+                 "slab-sharded pipeline (per-shard device_dbscan, halo "
+                 "exchange + global label reconciliation), adaptive caps")
+def _distributed_engine(points, eps, min_pts, *, device=None,
+                        devices: Optional[Sequence] = None,
+                        n_shards: Optional[int] = None, caps=None,
+                        use_kernels: Optional[bool] = None,
+                        max_retries: int = 8,
+                        growth: float = 2.0) -> ClusterResult:
+    """Slab-sharded engine (``repro_torch.dist``).
+
+    The shards run on ``devices`` (one per shard, repeats allowed), or
+    ``n_shards`` shards on ``device``; with neither, one shard per
+    visible CUDA device (see ``repro_torch.dist.shard_devices``).  Caps
+    are estimated from *per-shard* grid statistics
+    (:func:`repro_torch.engine.estimate_shard_caps`), the halo cap from
+    the boundary-band census (``repro_torch.dist.census_halo_cap``).
+
+    ``use_kernels`` selects the shard-local distance plane (it rides on
+    ``ClusterCaps.grit``): None picks the CUDA kernels when every shard
+    is on a CUDA device and the plain broadcast plane otherwise; an
+    explicit flag always wins, including over the plane carried by a
+    caller-provided ``caps``.
+    """
+    from ..dist import ClusterCaps, census_halo_cap, distributed_fit
+    from ..dist.api import shard_devices
+
+    t0 = time.perf_counter()
+    pts = np.asarray(points, np.float64)
+    n, d = pts.shape
+    _check_device_grid_range(pts, eps)
+    devs = shard_devices(devices, n_shards, device)
+    n_sh = len(devs)
+    if caps is None:
+        uk = all(dv.type == "cuda" for dv in devs) if use_kernels is None \
+            else bool(use_kernels)
+        grit = estimate_shard_caps(pts, eps, min_pts, n_sh, use_kernels=uk)
+        halo = min(census_halo_cap(pts, eps, n_sh), _pow2_at_least(n))
+        caps = ClusterCaps(grit=grit, halo_cap=halo)
+    elif use_kernels is not None and \
+            caps.grit.use_kernels != bool(use_kernels):
+        caps = dataclasses.replace(
+            caps, grit=dataclasses.replace(caps.grit,
+                                           use_kernels=bool(use_kernels)))
+
+    def run(c):
+        fit = distributed_fit(pts, eps, min_pts, devs, caps=c)
+        return fit, fit.report
+
+    def grow(c, overflowed):
+        # halo is measured from the raw points, so its flag stays
+        # trustworthy even while the grid table is truncated
+        grit = c.grit
+        grit_flags = tuple(f for f in overflowed if f != "halo")
+        if grit_flags:
+            grit = grow_caps(grit, grit_flags, n=n, d=d, growth=growth)
+        halo = c.halo_cap
+        if "halo" in overflowed:
+            halo = _pow2_at_least(min(int(halo * growth), n))
+        return ClusterCaps(grit=grit, halo_cap=halo)
+
+    fit, attempts = adaptive_loop(
+        run, grow,
+        lambda c: {**dataclasses.asdict(c.grit), "halo_cap": c.halo_cap},
+        caps, max_retries)
+    return ClusterResult.build(
+        fit.labels, "distributed", core=fit.core, attempts=attempts,
+        overflow=attempts[-1]["overflow"],
+        stats={"n": n, "n_shards": n_sh, "retries": len(attempts) - 1,
+               "use_kernels": attempts[-1]["caps"]["use_kernels"],
+               "devices": [str(dv) for dv in devs],
+               "t_total": time.perf_counter() - t0})

@@ -2,10 +2,11 @@
 
 Every clustering backend of the port registers itself here under a
 short name (``brute``, ``grit``, ``grit-ldf``, ``device``,
-``device-kernels``) and is invoked through :func:`cluster` with
-identical semantics: exact DBSCAN, labels in original point order.
-``engine="auto"`` picks a backend from the device the caller asked for
-(the CUDA device -> the kernelized device pipeline, ``device="cpu"`` ->
+``device-kernels``, ``distributed``) and is invoked through
+:func:`cluster` with identical semantics: exact DBSCAN, labels in
+original point order.  ``engine="auto"`` picks a backend from the
+device the caller asked for (several CUDA devices -> the distributed
+pipeline, one -> the kernelized device pipeline, ``device="cpu"`` ->
 the host GriT pipeline).
 
 Input validation happens *here*, once, for every engine: empty point
@@ -31,6 +32,7 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+import torch
 
 from .. import obs
 from .adaptive import resolve_device
@@ -88,6 +90,9 @@ def engine_descriptions() -> Dict[str, str]:
 def resolve_auto(device=None) -> str:
     """Pick a backend for ``engine="auto"``.
 
+    * ``device=None`` with more than one CUDA device visible
+                            -> "distributed" (slab sharding + halo, one
+                               shard per card, the kernel plane on each)
     * the CUDA device (``device=None`` or a ``cuda`` device)
                             -> "device-kernels" (the device pipeline
                                with the hand-written distance kernels)
@@ -97,8 +102,11 @@ def resolve_auto(device=None) -> str:
     ``device=None`` without a CUDA device raises, as every entry point
     of the port does.
     """
-    return "device-kernels" if resolve_device(device).type == "cuda" \
-        else "grit"
+    if resolve_device(device).type != "cuda":
+        return "grit"
+    if device is None and torch.cuda.device_count() > 1:
+        return "distributed"
+    return "device-kernels"
 
 
 def _attach_index(result: ClusterResult, pts: np.ndarray, eps: float,

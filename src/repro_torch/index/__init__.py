@@ -9,20 +9,25 @@ micro-batch inserts / deletes without refitting).
     res.index.ensure_device_state()              # resident serving state
     snap = res.index.snapshot()                  # flat arrays, savez-able
     reps = make_replicas(res.index, 2)           # read-only log replicas
+    sidx = fit_sharded(points, 3000.0, 10, n_shards=4)   # slab shards
 
 Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``.  Both mutation directions run through one delta
 engine (``repro_torch.index.delta``) that maintains the persistent
-core-grid merge graph.
+core-grid merge graph.  :class:`ShardedGritIndex` keeps one ``GritIndex``
+per dim-0 slab plus a global label map (the serving artifact of a
+distributed fit).
 """
 
 from .delta import (MutationLog, build_merge_graph, compact, delete_ids,
                     insert_batch)
 from .grit_index import GritIndex, PredictCaps
 from .replica import ReplicaIndex, make_replicas
+from .sharded import LabelMap, ShardedGritIndex, fit_sharded
 
-__all__ = ["GritIndex", "MutationLog", "PredictCaps", "ReplicaIndex",
-           "build_merge_graph", "compact", "delete_ids", "fit_index",
+__all__ = ["GritIndex", "LabelMap", "MutationLog", "PredictCaps",
+           "ReplicaIndex", "ShardedGritIndex", "build_merge_graph",
+           "compact", "delete_ids", "fit_index", "fit_sharded",
            "insert_batch", "make_replicas"]
 
 

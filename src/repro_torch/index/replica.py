@@ -15,10 +15,10 @@ serves ``predict`` (and every read-out) exactly as the primary would
 -- same labels, same ids, same float64 decisions -- which is what lets
 a serve driver fan read-only traffic across R replicas while the
 primary absorbs writes, with no answer drift (pinned by
-``tests/test_torch_serve.py``).  The log also has room for a sharded
-primary's topology ops (split / merge), which replay through the
-backend's ``split_shard`` / ``merge_shards``; the port's sharded index
-is ROADMAP A11.
+``tests/test_torch_serve.py``, ``tests/test_torch_sharded_index.py``).
+Sharded primaries log their topology ops (split/merge) too: in the
+localized regime those re-mint label ids, so a replica must replay
+them to stay id-identical, not just partition-identical.
 
 The clone carries no resident device state (a snapshot never holds
 one): a replica answers ``mode="device"`` by attaching its own on the

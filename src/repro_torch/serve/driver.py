@@ -30,13 +30,24 @@ point-query traffic against a fitted :class:`~repro_torch.index.GritIndex`:
   record when traffic outgrew the admission tensor;
 * per-request latency (submit -> labels) and per-step occupancy are
   recorded for the summary (p50/p95 latency, throughput);
-* the driver is index-agnostic: a backend that reports ``num_shards``
-  gets per-step slab-load gauges (``serve.slab.load.<k>`` and the
-  max/mean ``serve.slab.imbalance``) on both the per-server registry
-  and the process default, as the reference does.  The port has no
-  sharded backend yet, so for a single index that block is inert, and
-  ``rebalance=`` (the load-triggered split / merge plane) raises: both
-  come with ROADMAP A11;
+* the server is index-agnostic: a
+  :class:`~repro_torch.index.ShardedGritIndex` drops in as the backend
+  unchanged -- its ``predict`` buckets the step's batch by owning slab
+  internally (one batched per-shard call) and reports the routing
+  counters (queries per slab, multi-routed cut-band queries) through
+  the same per-step ``stats`` channel, so the step log shows slab
+  occupancy next to slot occupancy.  Per-step slab load (owned routed
+  queries + mutated rows per shard) is promoted to
+  ``repro_torch.obs`` gauges -- ``serve.slab.load.<k>`` and the
+  max/mean ``serve.slab.imbalance`` -- on both the per-server registry
+  and the process default, so the rebalance trigger is visible in
+  ``repro_torch.obs.view`` and trace exports;
+* ``rebalance=`` attaches a
+  :class:`~repro_torch.dist.rebalance.Rebalancer`: the slab-load
+  gauges feed its EWMA and *between* steps it applies at most one
+  bounded topology op (split the hottest slab / merge the coldest
+  adjacent pair) to the sharded backend, recorded in
+  ``topology_events``;
 * ``replicas=R`` clones R read-only :class:`~repro_torch.index.ReplicaIndex`
   off the primary (mutation-log replay plane) and fans each step's
   predict batch across them round-robin -- mutations keep hitting the
@@ -49,9 +60,11 @@ point-query traffic against a fitted :class:`~repro_torch.index.GritIndex`:
 
 ``python -m repro_torch.serve.driver --smoke [--device cpu]`` runs a
 miniature server on a catalogue scenario: fit, then serve a stream of
-ragged query batches; ``--replicas R`` attaches the replica plane and
-``--device-state`` the resident serving state.  ``--sharded`` /
-``--rebalance`` raise (ROADMAP A11).
+ragged query batches; ``--sharded N`` serves from an N-slab
+``ShardedGritIndex`` instead of the single-host index (the
+distributed-serving backend); ``--rebalance`` / ``--replicas R`` attach
+the topology and replica planes above, ``--device-state`` the resident
+serving state.
 """
 
 from __future__ import annotations
@@ -67,9 +80,6 @@ import numpy as np
 from .. import obs
 from ..engine.adaptive import _pow2_at_least, resolve_device
 from ..obs.metrics import MetricsRegistry
-
-_A11 = ("the sharded backend and the rebalance plane are not ported "
-        "yet (ROADMAP A11)")
 
 
 @dataclasses.dataclass
@@ -100,8 +110,6 @@ class ClusterServer:
     def __init__(self, index, *, slots: int = 4, query_cap: int = 64,
                  mode: str = "auto", device_state: bool = False,
                  rebalance=None, replicas: int = 0, device=None):
-        if rebalance is not None and rebalance is not False:
-            raise ValueError(f"rebalance= needs a sharded backend: {_A11}")
         self.index = index
         self.device = resolve_device(device)
         self.slots = int(slots)
@@ -112,9 +120,21 @@ class ClusterServer:
         self.growth_events: List[Dict[str, Any]] = []
         self.step_log: List[Dict[str, Any]] = []
         self.rejected_ids: List[np.ndarray] = []   # delete telemetry
-        # topology plane (load-triggered split/merge between steps):
-        # ROADMAP A11; the list keeps summary()'s reference keys
+        # topology plane: load-triggered split/merge between steps
+        self.rebalancer = None
         self.topology_events: List[Dict[str, Any]] = []
+        if rebalance is not None and rebalance is not False:
+            from ..dist.rebalance import RebalancePolicy, Rebalancer
+            if isinstance(rebalance, Rebalancer):
+                self.rebalancer = rebalance
+            elif isinstance(rebalance, RebalancePolicy):
+                self.rebalancer = Rebalancer(rebalance)
+            else:
+                self.rebalancer = Rebalancer()
+            if not hasattr(index, "split_shard"):
+                raise ValueError(
+                    "rebalance= needs a backend with topology ops; "
+                    f"{type(index).__name__} has no split_shard()")
         # replica plane: read-only clones fed by the primary's log;
         # each step's predict batch goes to one replica round-robin
         self.replicas: List[Any] = []
@@ -292,9 +312,7 @@ class ClusterServer:
             # slab-load gauges: owned routed queries + mutated rows per
             # shard -- the rebalance trigger, exported on both the
             # per-server registry and the process default registry so
-            # it shows in repro_torch.obs.view and trace exports (inert
-            # for a backend without num_shards: every backend the port
-            # has today)
+            # it shows in repro_torch.obs.view and trace exports
             num_shards = int(getattr(self.index, "num_shards", 0))
             if num_shards:
                 slab_load = np.zeros(num_shards, np.float64)
@@ -315,6 +333,8 @@ class ClusterServer:
                     obs.gauge(f"serve.slab.load.{k}").set(v)
                 reg.gauge("serve.slab.imbalance").set(imb)
                 obs.gauge("serve.slab.imbalance").set(imb)
+                if self.rebalancer is not None:
+                    self.rebalancer.observe(slab_load)
             t_step = time.perf_counter() - t0
             if pstats.get("caps_grew"):
                 self.growth_events.append(
@@ -350,6 +370,14 @@ class ClusterServer:
                  "queue_wait_ms": float(np.mean(qw_ms)),
                  "seconds": t_step, "kernel_s": kernel_s,
                  "pack_s": pack_s, "predict": pstats})
+        # topology op *between* steps: bounded by the policy's period,
+        # so reconcile cost amortizes against every subsequent step
+        if self.rebalancer is not None:
+            op_st = self.rebalancer.maybe_rebalance(self.index)
+            if op_st is not None:
+                self.topology_events.append(
+                    {"step": len(self.step_log), **op_st})
+                reg.counter("serve.topology_ops").inc()
         return active
 
     def run(self) -> List[ClusterRequest]:
@@ -421,11 +449,15 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "index (guard-band hot path; outputs stay "
                          "bit-identical to host serving)")
     ap.add_argument("--sharded", type=int, default=0, metavar="N",
-                    help="serve from an N-slab sharded index (not ported "
-                         "yet: ROADMAP A11)")
+                    help="serve from an N-slab ShardedGritIndex "
+                         "(slab-routed predict) instead of the "
+                         "single-host index")
     ap.add_argument("--rebalance", action="store_true",
-                    help="attach a load-triggered rebalancer (not ported "
-                         "yet: ROADMAP A11)")
+                    help="attach a load-triggered Rebalancer to the "
+                         "sharded backend (split hottest / merge "
+                         "coldest between steps; needs --sharded)")
+    ap.add_argument("--rebalance-period", type=int, default=8,
+                    help="min steps between topology ops")
     ap.add_argument("--replicas", type=int, default=0, metavar="R",
                     help="fan predict traffic across R read-only "
                          "replicas fed by the primary's mutation log")
@@ -436,8 +468,6 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "telemetry)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.sharded or args.rebalance:
-        raise ValueError(f"--sharded / --rebalance: {_A11}")
 
     from ..data.scenarios import get_scenario
     from ..engine import cluster
@@ -447,16 +477,30 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"fitting {args.scenario} (n={len(pts)}, eps={sc.eps}, "
           f"min_pts={sc.min_pts}) with engine={args.engine}...")
     t0 = time.perf_counter()
-    res = cluster(pts, sc.eps, sc.min_pts, engine=args.engine,
-                  device=args.device, return_index=True)
-    index = res.index
-    print(f"  fit {time.perf_counter() - t0:.2f}s: "
-          f"{res.n_clusters} clusters, {index.num_grids} grids")
+    if args.sharded:
+        from ..index import fit_sharded
+        index = fit_sharded(pts, sc.eps, sc.min_pts,
+                            n_shards=args.sharded, engine=args.engine,
+                            device=args.device)
+        print(f"  fit {time.perf_counter() - t0:.2f}s: "
+              f"{index.num_shards} slab shards "
+              f"(cuts at {np.round(index.cuts, 1).tolist()}), "
+              f"{index.num_grids} grids total")
+    else:
+        res = cluster(pts, sc.eps, sc.min_pts, engine=args.engine,
+                      device=args.device, return_index=True)
+        index = res.index
+        print(f"  fit {time.perf_counter() - t0:.2f}s: "
+              f"{res.n_clusters} clusters, {index.num_grids} grids")
 
     rng = np.random.default_rng(args.seed)
     n_req = 6 if args.smoke else args.num_requests
+    rebalance = None
+    if args.rebalance:
+        from ..dist.rebalance import RebalancePolicy
+        rebalance = RebalancePolicy(period=args.rebalance_period)
     srv = ClusterServer(index, slots=args.slots, mode=args.mode,
-                        device_state=args.device_state,
+                        device_state=args.device_state, rebalance=rebalance,
                         replicas=args.replicas, device=args.device)
     deletable = list(range(len(pts)))
     for i in range(n_req):
@@ -495,6 +539,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     noise = sum(int((r.labels < 0).sum()) for r in srv.done
                 if r.labels is not None)
     print(f"  noise rate {noise / max(s['queries'], 1):.2f}")
+    if args.sharded:
+        routed = sum(st["predict"].get("multi_routed", 0)
+                     for st in srv.step_log)
+        imb = srv.metrics.gauge("serve.slab.imbalance").value
+        print(f"  slab routing: {index.num_shards} shards, "
+              f"imbalance (max/mean) {imb:.2f}, "
+              f"{routed} cut-band queries consulted both neighbors")
+    if srv.rebalancer is not None:
+        ops = [(e["op"], e["shard"]) for e in srv.topology_events]
+        print(f"  topology ops: {ops} -> {index.num_shards} shards, "
+              f"cut history {len(index.cut_history)} entries")
     if srv.replicas:
         print(f"  replicas: {len(srv.replicas)} read-only, lag "
               f"{[r.lag for r in srv.replicas]} ops behind primary")

@@ -53,7 +53,8 @@ def brute():
 
 def test_registry_lists_the_ported_engines():
     assert set(tengine.available_engines()) == {
-        "brute", "grit", "grit-ldf", "device", "device-kernels"}
+        "brute", "grit", "grit-ldf", "device", "device-kernels",
+        "distributed"}
     assert set(tengine.engine_descriptions()) == \
         set(tengine.available_engines())
     assert tengine.get_engine("device-kernels").name == "device-kernels"
@@ -64,7 +65,8 @@ def test_registry_lists_the_ported_engines():
         tengine.register_engine("brute")(lambda *a, **k: None)
 
 
-@pytest.mark.parametrize("engine", PORT_ENGINES + ["brute", "auto"])
+@pytest.mark.parametrize("engine",
+                         PORT_ENGINES + ["distributed", "brute", "auto"])
 def test_degenerate_inputs_rejected_uniformly(engine):
     """The same boundary ``ValueError``s as the reference, for every
     engine, before any backend (or any device lookup) runs."""

@@ -487,3 +487,133 @@ def test_span_names_and_counters_equal_across_packages():
     serve_p = {k: v for k, v in p_srv.items() if isinstance(v, int)}
     assert serve_r == serve_p
     assert serve_p["serve.requests"] == 6
+
+
+# ---------------------------------------------------------------------------
+# the distributed plane: dist.fit* spans, dist.* and serve.slab.* metrics
+# ---------------------------------------------------------------------------
+
+DIST_GAUGES = ("dist.halo.padding_waste", "dist.halo.fill",
+               "dist.pack.padding_waste")
+
+
+def _traced(pobs, fn, gauges=()):
+    """Run ``fn`` with ``pobs`` tracing on (restored after); returns
+    (``fn``'s result, span names, the deltas of the process registry's
+    ``dist.*`` counters and the values of ``gauges``, which ``fn``
+    sets)."""
+    was = pobs.enabled()
+    before = pobs.registry().snapshot()
+    t = pobs.enable(clear=True)
+    try:
+        out = fn()
+        names = {e["name"] for e in t.snapshot_events()}
+    finally:
+        if not was:
+            pobs.disable()
+    after = pobs.registry().snapshot()
+    met = {k: v - before.get(k, 0) for k, v in after.items()
+           if k.startswith("dist.") and isinstance(v, int)
+           and v != before.get(k, 0)}
+    met.update({k: after[k]["value"] for k in gauges})
+    return out, names, met
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_dist_fit_spans_and_metrics_equal_across_packages(staged):
+    """One traced distributed fit through each package (the reference
+    on a 1-device mesh, the port on one CPU shard): the same span set
+    -- ``dist.fit`` > pack, transfer, halo_exchange, local_cluster,
+    reconcile, unpack when staged; spmd_step in place of the three
+    stages when not -- and, when staged, the same ``dist.halo.*`` /
+    ``dist.pack.*`` counters and gauges."""
+    import jax
+    from repro import obs as jobs
+    from repro.dist import distributed_fit as jfit
+    from repro_torch.data.scenarios import get_scenario
+    from repro_torch.dist import distributed_fit as tfit
+
+    sc = get_scenario("cross-slab-3d")
+    pts = sc.points()
+    mesh = jax.make_mesh((1,), ("shard",))
+    gauges = DIST_GAUGES if staged else ()
+    _, r_names, r_met = _traced(jobs, lambda: jfit(
+        pts, sc.eps, sc.min_pts, mesh, traced=staged), gauges)
+    _, p_names, p_met = _traced(obs, lambda: tfit(
+        pts, sc.eps, sc.min_pts, n_shards=1, device="cpu", traced=staged),
+        gauges)
+    stages = ({"halo_exchange", "local_cluster", "reconcile"} if staged
+              else {"spmd_step"})
+    assert r_names == p_names == {"dist.fit"} | {
+        f"dist.fit.{s}" for s in {"pack", "transfer", "unpack"} | stages}
+    assert r_met == p_met
+    if staged:
+        assert p_met["dist.fit.count"] == 1
+        assert {"dist.halo.points_selected", "dist.halo.buffer_slots",
+                "dist.pack.points", "dist.pack.slots"} <= set(p_met)
+    else:
+        assert p_met == {}
+
+
+def test_dist_fit_records_nothing_with_tracing_off():
+    from repro_torch.data.scenarios import get_scenario
+    from repro_torch.dist import distributed_fit
+
+    was = obs.enabled()
+    obs.disable()
+    try:
+        sc = get_scenario("cross-slab-2d")
+        distributed_fit(sc.points(), sc.eps, sc.min_pts, n_shards=4,
+                        device="cpu")
+        assert obs.get_tracer() is None
+    finally:
+        if was:
+            obs.enable()
+
+
+def test_serve_slab_gauges_equal_across_packages():
+    """A sharded server's step through each package: the process-wide
+    ``serve.slab.load.<k>`` / ``serve.slab.imbalance`` gauges hold the
+    same values, and a rebalance op counts in ``serve.topology_ops``."""
+    import importlib
+
+    from repro import obs as jobs
+
+    rng = np.random.default_rng(7)
+    pts = np.concatenate([rng.normal((0, 0), 1.0, (300, 2)),
+                          rng.normal((8, 1), 1.2, (300, 2))])
+    queries = [rng.normal((4, 0), 3.0, (40, 2)) for _ in range(6)]
+
+    def run(pkg):
+        index = importlib.import_module(f"{pkg}.index")
+        serve = importlib.import_module(f"{pkg}.serve")
+        rb = importlib.import_module(f"{pkg}.dist.rebalance")
+        kw = {"device": "cpu"} if pkg == "repro_torch" else {}
+        sidx = index.fit_sharded(pts, 0.6, 6, n_shards=3, **kw)
+        srv = serve.ClusterServer(
+            sidx, slots=2, rebalance=rb.RebalancePolicy(
+                period=1, hot_factor=1.01, cold_factor=0.0), **kw)
+        for q in queries:
+            srv.submit(q)
+        srv.run()
+        return srv
+
+    r_srv, r_names, _ = _traced(jobs, lambda: run("repro"))
+    p_srv, p_names, _ = _traced(obs, lambda: run("repro_torch"))
+    # the gauges this run set: the ones on the servers' own registries
+    slab = sorted(k for k in p_srv.metrics.snapshot()
+                  if k.startswith("serve.slab"))
+    assert "serve.slab.imbalance" in slab and "serve.slab.load.3" in slab
+    for pobs, srv in ((jobs, r_srv), (obs, p_srv)):
+        own = srv.metrics.snapshot()
+        proc = pobs.registry().snapshot()
+        assert [proc[k]["value"] for k in slab] == \
+            [own[k]["value"] for k in slab]
+    def books(srv):
+        return {k: v for k, v in srv.metrics.snapshot().items()
+                if isinstance(v, int) or k in slab}
+
+    assert books(r_srv) == books(p_srv)
+    assert p_srv.topology_events and p_srv.index.num_shards > 3
+    assert {"serve.step", "serve.step.dispatch"} <= p_names
+    assert r_names == p_names

@@ -12,8 +12,11 @@ primary.  On the same stream of predicts, inserts and deletes, the
 port's server gives the reference's labels request for request, and
 the same step log and growth events, in host, kernel (the plain
 ``row_min_batch`` on the CPU) and device (a resident state on the CPU)
-modes.  The sharded backend and the rebalance plane are ROADMAP A11:
-asking for them raises.
+modes.  A sharded index drops into ``ClusterServer`` as a backend
+(twins of ``tests/test_serve.py``'s sharded cases and of
+``tests/test_topology.py::TestServeIntegration``): its slab-load
+gauges, its rebalance plane and its replicated reads give what the
+reference's server gives on the same scripted trace.
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ import torch
 
 from repro_torch.data.scenarios import get_serving_scenario
 from repro_torch.engine import cluster
-from repro_torch.index import GritIndex, ReplicaIndex, fit_index, make_replicas
+from repro_torch.index import (GritIndex, ReplicaIndex, fit_index,
+                               fit_sharded, make_replicas)
 from repro_torch.serve import ClusterServer
 from repro_torch.serve import driver as serve_driver
 
@@ -142,7 +146,7 @@ def test_server_idle_step_is_noop(served_index):
 
 
 # --------------------------------------------------------------------------
-# the port's device rule; the parts that wait for ROADMAP A11
+# the port's device rule
 # --------------------------------------------------------------------------
 
 def test_default_device_is_the_card_and_raises_without_one(served_index):
@@ -152,22 +156,6 @@ def test_default_device_is_the_card_and_raises_without_one(served_index):
     else:
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             ClusterServer(idx)
-
-
-@pytest.mark.parametrize("how", ["rebalance=", "--sharded", "--rebalance"])
-def test_sharded_and_rebalance_raise_naming_a11(served_index, how):
-    """The reference's two sharded-backend cases are replaced by this
-    one: the sharded backend and the rebalance plane are not ported yet,
-    and asking for them raises ``ValueError`` naming ROADMAP A11."""
-    _, idx = served_index
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        if how == "rebalance=":
-            ClusterServer(idx, rebalance=True, device="cpu")
-        elif how == "--sharded":
-            serve_driver.main(["--smoke", "--device", "cpu",
-                               "--sharded", "2"])
-        else:
-            serve_driver.main(["--smoke", "--device", "cpu", "--rebalance"])
 
 
 def test_smoke_cli_serves_with_replicas_and_mutations(capsys):
@@ -382,3 +370,158 @@ def test_scripted_trace_equals_the_reference_server(mode):
     np.testing.assert_array_equal(jidx.labels_arrival(),
                                   pidx.labels_arrival())
     np.testing.assert_array_equal(jidx.core_arrival(), pidx.core_arrival())
+
+
+# --------------------------------------------------------------------------
+# sharded backend (twins of tests/test_serve.py's sharded cases)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sharded_index():
+    from repro_torch.data.scenarios import get_dist_serving_scenario
+
+    ss = get_dist_serving_scenario("slab-serve-2d")
+    pts = ss.fit_points()
+    sidx = fit_sharded(pts, ss.base.eps, ss.base.min_pts, n_shards=4,
+                       engine="grit", device="cpu")
+    return ss, sidx
+
+
+@pytest.mark.parametrize("mode", ["host", "kernel"])
+def test_server_sharded_backend_matches_direct_predict(sharded_index, mode):
+    """A ShardedGritIndex drops into ``ClusterServer`` unchanged:
+    per-request labels equal a direct slab-routed predict, and the step
+    log carries the slab-routing counters."""
+    ss, sidx = sharded_index
+    reqs = _ragged_requests(ss, 7, [11, 29, 4, 17])
+    srv = ClusterServer(sidx, slots=3, mode=mode, device="cpu")
+    rids = [srv.submit(r) for r in reqs]
+    done = srv.run()
+    assert sorted(r.rid for r in done) == rids
+    for r, pts in zip(sorted(done, key=lambda r: r.rid), reqs):
+        np.testing.assert_array_equal(
+            r.labels, sidx.predict(pts, mode=mode, device="cpu"))
+    for s in srv.step_log:
+        assert s["predict"]["shards"] == sidx.num_shards
+        assert s["predict"]["mode"] == mode
+        assert sum(s["predict"]["owned_per_shard"]) == s["queries"]
+
+
+def test_server_sharded_routes_cut_band_queries(sharded_index):
+    ss, sidx = sharded_index
+    srv = ClusterServer(sidx, slots=2, mode="host", device="cpu")
+    srv.submit(ss.query_batch(seed=1))
+    srv.run()
+    assert sum(s["predict"]["multi_routed"] for s in srv.step_log) > 0
+
+
+def test_sharded_backend_has_no_resident_state(sharded_index):
+    """``device_state=True`` needs ``ensure_device_state()``, which a
+    sharded index does not have (nor has the reference's)."""
+    _, sidx = sharded_index
+    with pytest.raises(ValueError, match="no ensure_device_state"):
+        ClusterServer(sidx, device_state=True, device="cpu")
+
+
+def test_rebalance_needs_topology_backend(blobs):
+    with pytest.raises(ValueError, match="split_shard"):
+        ClusterServer(_fit(blobs), rebalance=True, device="cpu")
+
+
+@pytest.mark.parametrize("argv,lines", [
+    (["--sharded", "4", "--rebalance"],
+     ["4 slab shards", "slab routing: 4 shards", "topology ops: []"]),
+    (["--sharded", "3", "--rebalance", "--rebalance-period", "1",
+      "--mutate", "--replicas", "1", "--engine", "distributed"],
+     ["3 slab shards", "slab routing: 3 shards", "topology ops: ",
+      "mutations: ", "replicas: 1 read-only, lag [0]"]),
+])
+def test_smoke_cli_sharded_rebalance(capsys, argv, lines):
+    serve_driver.main(["--smoke", "--device", "cpu"] + argv)
+    out = capsys.readouterr().out
+    assert "served 6 requests" in out
+    for line in lines:
+        assert line in out, (line, out)
+
+
+# --------------------------------------------------------------------------
+# slab gauges, the rebalance plane and replicated reads against the
+# reference's server (twins of tests/test_topology.py::TestServeIntegration)
+# --------------------------------------------------------------------------
+
+def _topology_serve(pkg, pts, **kw):
+    """The reference's TestServeIntegration stream through ``pkg``'s
+    sharded index and server: 12 requests over 2 slots, every fourth an
+    insert."""
+    import importlib
+
+    index = importlib.import_module(f"{pkg}.index")
+    serve = importlib.import_module(f"{pkg}.serve")
+    dkw = {"device": "cpu"} if pkg == "repro_torch" else {}
+    if "rebalance" in kw:
+        rb = importlib.import_module(f"{pkg}.dist.rebalance")
+        kw["rebalance"] = rb.RebalancePolicy(**kw["rebalance"])
+    sidx = index.fit_sharded(pts, EPS, MIN_PTS, n_shards=3, **dkw)
+    srv = serve.ClusterServer(sidx, slots=2, **kw, **dkw)
+    rng = np.random.default_rng(9)
+    for i in range(12):
+        if i % 4 == 3:
+            srv.submit_insert(rng.normal((8, 1), 1.2, (20, 2)))
+        else:
+            srv.submit(rng.normal((4, -1), 3.0, (30, 2)))
+    return srv, sorted(srv.run(), key=lambda r: r.rid)
+
+
+def _slab_metrics(srv):
+    snap = srv.metrics.snapshot()
+    return {k: v for k, v in snap.items()
+            if k.startswith("serve.slab") or k == "serve.topology_ops"}
+
+
+@pytest.mark.parametrize("case", ["plain", "rebalance", "replicas",
+                                  "rebalance+replicas"])
+def test_sharded_trace_equals_the_reference_server(blobs, case):
+    kw = {}
+    if "rebalance" in case:
+        kw["rebalance"] = dict(period=1, hot_factor=1.01, cold_factor=0.0)
+    if "replicas" in case:
+        kw["replicas"] = 2
+    jsrv, jdone = _topology_serve("repro", blobs, **dict(kw))
+    psrv, pdone = _topology_serve("repro_torch", blobs, **dict(kw))
+    assert len(jdone) == len(pdone) == 12
+    for a, b in zip(jdone, pdone):
+        assert a.kind == b.kind
+        if a.kind == "predict":
+            np.testing.assert_array_equal(np.asarray(a.labels), b.labels)
+    assert [{k: s[k] for k in LOG_KEYS} for s in jsrv.step_log] \
+        == [{k: s[k] for k in LOG_KEYS} for s in psrv.step_log]
+    assert [{k: s["predict"].get(k) for k in ("per_shard", "multi_routed",
+                                              "owned_per_shard")}
+            for s in jsrv.step_log] == \
+        [{k: s["predict"].get(k) for k in ("per_shard", "multi_routed",
+                                           "owned_per_shard")}
+         for s in psrv.step_log]
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "t_total"}
+                         for e in evs]
+    assert strip(jsrv.topology_events) == strip(psrv.topology_events)
+    assert _slab_metrics(jsrv) == _slab_metrics(psrv)
+    names = str(list(_slab_metrics(psrv)))
+    assert "serve.slab.imbalance" in names
+    assert "serve.slab.load.0" in names
+    np.testing.assert_array_equal(jsrv.index.labels_arrival(),
+                                  psrv.index.labels_arrival())
+    assert psrv.index.cut_history == jsrv.index.cut_history
+    if "rebalance" in case:
+        assert psrv.topology_events
+        assert psrv.index.num_shards > 3
+        assert all(e["op"] == "split" for e in psrv.topology_events)
+        assert psrv.summary()["topology_events"] == psrv.topology_events
+    else:
+        assert psrv.topology_events == [] and psrv.index.num_shards == 3
+    if "replicas" in case:
+        assert len(psrv.replicas) == 2 and psrv._rr > 0
+        for rep in psrv.replicas:
+            rep.catch_up()
+            np.testing.assert_array_equal(rep.labels_arrival(),
+                                          psrv.index.labels_arrival())
+            assert rep.index.cut_history == psrv.index.cut_history
