@@ -116,14 +116,20 @@ result line) as soon as a phase fails:
            of the mean |want|) at the LM path's shapes
            (qwen2-1.5b prefill with its 2 KV heads read in place and
            after a broadcast to 12, 8,192-token prefill, gemma2's
-           windowed soft-capped layer) and at ragged, non-causal, decode,
+           windowed soft-capped layer, mixtral's 8,192-token prefill with
+           its 4,096 window on 8 KV heads, and the families phase's
+           prefill calls of its batch of 4 x 2,048: mixtral's, arctic's
+           and zamba2's) and at ragged, non-causal, decode,
            chunked-prefix and small-head shapes; each case's route
            (``wgmma`` for bf16, ``scalar`` for float32) as the library
            reports it; CUDA-event times beside the bound and, where one
            call computes the same function,
            ``F.scaled_dot_product_attention`` (``vs_library`` = ms over
-           its ms); the bf16 head-dim-128 kernel's registers and spills
-           as ptxas reported them and its HGMMA count in the SASS
+           its ms; where a window binds, the library call is dense
+           masked SDPA, and ``library_causal_ms`` times causal SDPA over
+           the same tokens beside it); the bf16 head-dim-128 kernel's
+           registers and spills as ptxas reported them and its HGMMA
+           count in the SASS
   lm       qwen2-1.5b at full width (float32 params from a seeded
            generator, bfloat16 activations) served through
            ``launch.serve.serve_requests`` with the flash kernel: (a) the
@@ -136,11 +142,36 @@ result line) as soon as a phase fails:
            the KV heads; last, (b)'s two batches prefilled again warm, three
            timed calls and one under ``torch.profiler`` (device ms of all
            kernels and of the flash kernel, the device's idle share)
+  families the decoder-only families at their published widths, one line
+           each, each model freed before the next: mixtral-8x7b (8 of 32
+           layers, float32 params), arctic-480b (2 of 35 layers, bfloat16
+           params), zamba2-2.7b and rwkv6-3b (all layers, float32), the
+           depth cut only where one 80 GB card forces it (``reduced``);
+           params from a seeded generator, bfloat16 activations, served
+           through ``launch.serve.serve_requests`` with the flash kernel:
+           the lm phase's traffic (a) and (b) without its 8,192-token
+           prompt, which only mixtral serves (past its window: flash's
+           window mask and the ring cache); flash launches per prefill
+           8 / 2 / 9 / 0 (one per attention application); (b) prefilled
+           again warm as in phase lm; flash against the plain attention
+           path for mixtral and zamba2 at (b) (last-position logits in
+           bfloat16: mixtral within 3e-2 of the largest logit at its 8
+           layers, zamba2 within 3e-2 at 6 layers, one application of
+           its shared block; both, at the depth run, no farther than 1.1
+           times the plain path from the float32 plain logits; float32
+           within 1e-3, the scalar route); for the two MoE models the first
+           layer's MoE input at (b) through the sparse dispatch at a
+           capacity that drops nothing against the dense oracle (within
+           2e-2 of the largest |y|), the share of (token, choice) pairs
+           the config's capacity factor 1.25 drops and the per-expert
+           load; for zamba2 and rwkv6 the first recurrent layer in
+           float32 on 256 (zamba2 also 512) prompt tokens, its chunked
+           scan against the sequential oracle (rtol = atol = 1e-4)
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
-server phase, the sharded phase and the lm phase.
+server phase, the sharded phase, the lm phase and the families phase.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -2051,6 +2082,16 @@ FLASH_CASES = [
     ("head_dim_16", 2, 8, 8, 1000, 1000, 16, "float32", True, 256, None),
     ("head_dim_32", 2, 8, 8, 1000, 1000, 32, "bfloat16", True, None, 30.0),
     ("head_dim_80", 1, 32, 32, 2048, 2048, 80, "bfloat16", True, None, None),
+    # mixtral's 8,192-token prefill: window 4,096, 32 heads on 8 KV heads
+    ("mixtral_prefill_8192_swa", 1, 32, 8, 8192, 8192, 128, "bfloat16", True,
+     4096, None),
+    # the families phase's prefill calls of its batch (b), 4 x 2,048
+    ("mixtral_prefill", 4, 32, 8, 2048, 2048, 128, "bfloat16", True, 4096,
+     None),
+    ("arctic_prefill", 4, 56, 8, 2048, 2048, 128, "bfloat16", True, None,
+     None),
+    ("zamba2_prefill", 4, 32, 32, 2048, 2048, 80, "bfloat16", True, None,
+     None),
 ]
 # the kernel against its plain version, elementwise |got - want| <=
 # rtol·|want| + atol, and mean |got - want| <= FLASH_MEAN_REL·mean |want|.
@@ -2072,16 +2113,22 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 def sdpa_call(q, k, v, causal, window, softcap):
     """One ``F.scaled_dot_product_attention`` call computing the same
     function (timed as a yardstick only; the port never calls it), or
-    None where none does (the tanh soft-cap)."""
+    None where none does (the tanh soft-cap).  With fewer KV heads and a
+    mask, k / v are broadcast to every query head before the timed call
+    (the library's masked backends take no GQA map).  A window of Sk or
+    more keys masks nothing, and is dropped."""
     import torch.nn.functional as F
     if softcap is not None:
         return None
     Sq, Sk = q.shape[2], k.shape[2]
+    if window is not None and window >= Sk:
+        window = None
     if k.shape[1] != q.shape[1]:
-        if not (causal and window is None and Sq == Sk):
-            return None
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
+        if causal and window is None and Sq == Sk:
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        group = q.shape[1] // k.shape[1]
+        k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
     if causal and window is None and Sq == Sk:
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
     qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
@@ -2187,6 +2234,12 @@ def flash_phase(dev, seed):
         lib = sdpa_call(q, k, v, causal, window, cap)
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw))
         library_ms = None if lib is None else cuda_ms(lib)
+        # where a window binds, the library has no call that skips the
+        # tiles it masks: causal SDPA over the same tokens (more pairs
+        # than the window's, but its masked tiles skipped) is timed beside
+        causal_lib = None
+        if window is not None and window < Sk and causal:
+            causal_lib = sdpa_call(q, k, v, True, None, cap)
         rows.append(dict(
             case=name, shape=[B, H, Sq, Sk, D], kv_heads=Hkv, dtype=dt,
             causal=causal, window=window, softcap=cap, route=route,
@@ -2197,7 +2250,9 @@ def flash_phase(dev, seed):
                              reps=2, warmup=1),
             bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
             library_ms=library_ms,
-            vs_library=None if library_ms is None else ms / library_ms))
+            vs_library=None if library_ms is None else ms / library_ms,
+            library_causal_ms=None if causal_lib is None
+            else cuda_ms(causal_lib)))
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -2209,6 +2264,7 @@ def flash_phase(dev, seed):
 
 LM_ARCH = "qwen2-1.5b"
 LM_NEW = 16
+TOP_KERNELS = 6          # kernels by device time in a profiled prefill
 
 
 def _first_groups(tree, n):
@@ -2219,9 +2275,11 @@ def _first_groups(tree, n):
     return tree[:n]
 
 
-def _serve_part(cfg, params, reqs, slots, max_len, dev):
+def _serve_part(cfg, params, reqs, slots, max_len, dev, flash_per_prefill=None,
+                tag="lm"):
     """Serve ``reqs`` with the launch counts at 0; returns the part's
-    readings and its flash launches."""
+    readings and its launches.  Each prefill must launch flash
+    ``flash_per_prefill`` times (default: once a layer)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_requests
     torch.cuda.empty_cache()
@@ -2235,15 +2293,15 @@ def _serve_part(cfg, params, reqs, slots, max_len, dev):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     n_prefill = len(stats["prefill_s"])
-    per_layer = cfg.num_layers
-    require(launches["flash_attention"] == per_layer * n_prefill,
-            f"lm: {launches['flash_attention']} flash_attention launches for "
-            f"{n_prefill} prefill calls of {per_layer} layers")
+    per = cfg.num_layers if flash_per_prefill is None else flash_per_prefill
+    require(launches["flash_attention"] == per * n_prefill,
+            f"{tag}: {launches['flash_attention']} flash_attention launches "
+            f"for {n_prefill} prefill calls, expected {per} a call")
     tokens = sum(len(r.out) for r in done)
     require(all(len(r.out) == r.max_new for r in done)
             and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-            "lm: a request got the wrong number of tokens or an id out of "
-            "the vocabulary")
+            f"{tag}: a request got the wrong number of tokens or an id out "
+            "of the vocabulary")
     dec = stats["decode_s"]
     return dict(
         requests=len(done), slots=slots, max_len=max_len,
@@ -2259,12 +2317,14 @@ def _serve_part(cfg, params, reqs, slots, max_len, dev):
         first_out=done[0].out[:8]), launches
 
 
-def _compare_prefill(cfg, params, toks, dev):
+def _compare_prefill(cfg, params, toks, dev, attn_per_prefill=None,
+                     tag="lm"):
     """Last-position logits of one prefill with the flash kernel and with
     the plain attention path: (max |diff| / max |logit|, greedy-token
-    agreement).  The flash prefill must make no broadcast copy of the KV
-    heads (the kernel reads them in place); the plain one makes two per
-    layer."""
+    agreement, {True: the flash logits, False: the plain ones}).  The
+    flash prefill must make no broadcast copy of the KV heads (the kernel
+    reads them in place); the plain one makes two per attention
+    application (``attn_per_prefill``, default one a layer)."""
     from repro_torch.models import init_cache, layers, prefill
     out = {}
     real_copy = layers._broadcast_kv
@@ -2282,24 +2342,32 @@ def _compare_prefill(cfg, params, toks, dev):
             out[flash], _ = prefill(c, params, {"tokens": toks}, cache)
         finally:
             layers._broadcast_kv = real_copy
-        want = 0 if flash else 2 * c.num_layers
+        per = c.num_layers if attn_per_prefill is None else attn_per_prefill
+        want = 0 if flash else 2 * per
         require(len(copies) == want,
-                f"lm: {len(copies)} KV broadcast copies in a prefill with "
+                f"{tag}: {len(copies)} KV broadcast copies in a prefill with "
                 f"use_flash_kernel={flash}, expected {want}")
         del cache
         torch.cuda.empty_cache()
     f, p = out[True], out[False]
-    require(bool(torch.isfinite(f).all()), "lm: non-finite logits")
+    require(bool(torch.isfinite(f).all()), f"{tag}: non-finite logits")
     rel = float((f - p).abs().max().item() / p.abs().max().item())
     agree = float((f.argmax(-1) == p.argmax(-1)).float().mean().item())
-    return rel, agree
+    return rel, agree, out
 
 
-def _warm_prefill(cfg, params, toks, dev, reps=3):
+def _warm_prefill(cfg, params, toks, dev, reps=3, flash_per_prefill=None,
+                  tag="lm", cpu_trace=True):
     """Prefill of ``toks`` at a shape already served: host ms of ``reps``
     synchronised calls, then one call under ``torch.profiler``: the device
-    ms of every kernel and of the flash kernel, and the share of that
-    call's wall time (profiler overhead included) with no kernel running."""
+    ms of every kernel and of the flash kernel (``flash_per_prefill``
+    launches, default one a layer), and the share of that call's wall
+    time (profiler overhead included) with no kernel running.  The trace
+    holds CPU activity too unless ``cpu_trace`` is False: the families
+    trace device activity only, since the CPU op records of an eager
+    prefill (some 800,000 for rwkv6's chunk loops) take longer to read
+    back than the phase's serving; phase lm keeps both, as it has since
+    its idle share was first read."""
     from repro_torch.models import init_cache, prefill
 
     def once():
@@ -2311,8 +2379,10 @@ def _warm_prefill(cfg, params, toks, dev, reps=3):
         return 1e3 * (time.perf_counter() - t0)
 
     host_ms = [once() for _ in range(reps)]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    per = cfg.num_layers if flash_per_prefill is None else flash_per_prefill
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu_trace:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     # the trace must hold every launch of the call: a trace that lost a
     # kernel record (seen once in a run of this script) is taken again,
     # once; the launch counts of ops.LAUNCHES must match either way
@@ -2328,24 +2398,33 @@ def _warm_prefill(cfg, params, toks, dev, reps=3):
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         del cache
-        require(ops.LAUNCHES["flash_attention"] - before == cfg.num_layers,
-                "lm: the profiled prefill did not launch flash once a layer")
+        require(ops.LAUNCHES["flash_attention"] - before == per,
+                f"{tag}: the profiled prefill launched flash "
+                f"{ops.LAUNCHES['flash_attention'] - before} times, not {per}")
         kern = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and "Command Buffer" not in e.name]
         flash = [e for e in kern if "flash_wgmma_kernel" in e.name]
         shown.append(len(flash))
-        if len(flash) == cfg.num_layers:
+        if len(flash) == per:
             break
-    require(len(flash) == cfg.num_layers,
-            f"lm: the profiled prefills show {shown} flash kernels")
+    require(len(flash) == per,
+            f"{tag}: the profiled prefills show {shown} flash kernels")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        n = e.name[:80]
+        ms, calls = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     return dict(batch=list(toks.shape), host_ms=host_ms,
-                profiled_wall_ms=wall, kernel_ms=busy,
+                cpu_traced=cpu_trace, profiled_wall_ms=wall, kernel_ms=busy,
                 flash_kernel_ms=sum(e.time_range.elapsed_us()
                                     for e in flash) / 1e3,
                 flash_kernels=len(flash), flash_kernels_traced=shown,
-                idle_share=max(0.0, 1.0 - busy / wall))
+                idle_share=max(0.0, 1.0 - busy / wall), kernels=len(kern),
+                top_kernels=[dict(name=n, ms=ms, calls=c)
+                             for n, (ms, c) in top])
 
 
 def lm_phase(dev, seed):
@@ -2397,12 +2476,12 @@ def lm_phase(dev, seed):
 
     # the batch of (b) again: flash against the plain attention path, in
     # bfloat16 at full depth and in float32 at 4 layers
-    rel_bf16, agree_bf16 = _compare_prefill(cfg, params, toks, dev)
+    rel_bf16, agree_bf16, _ = _compare_prefill(cfg, params, toks, dev)
     require(rel_bf16 <= 3e-2, f"lm: flash and plain prefill logits differ "
             f"by {rel_bf16} of the largest logit (bfloat16)")
     cfg4 = cfg.with_overrides(num_layers=4, dtype="float32")
     params4 = dict(params, blocks=_first_groups(params["blocks"], 4))
-    rel_f32, agree_f32 = _compare_prefill(cfg4, params4, toks, dev)
+    rel_f32, agree_f32, _ = _compare_prefill(cfg4, params4, toks, dev)
     require(rel_f32 <= 1e-3, f"lm: flash and plain prefill logits differ "
             f"by {rel_f32} of the largest logit (float32, 4 layers)")
     del params, params4
@@ -2418,6 +2497,391 @@ def lm_phase(dev, seed):
             f32_4layers_rel=rel_f32, f32_tol=1e-3,
             f32_greedy_agree=agree_f32, batch=[4, 2048]))
     return summary, launches
+
+
+# --------------------------------------------------------------------------
+# families: the decoder-only families at their published widths
+# --------------------------------------------------------------------------
+
+# (arch, its published widths as its config states them, layers run on
+# the one card (None: all), why the depth is cut); the widths are
+# required before anything is cut
+FAMILIES = [
+    ("mixtral-8x7b",
+     dict(layers=32, d_model=4096, heads=32, kv_heads=8, head_dim=128,
+          d_ff=14336, vocab=32000, window=4096, experts=8, top_k=2,
+          expert_d_ff=14336, dense_residual=False, param_dtype="float32"),
+     8, "32 layers of float32 params need 186 GB (5.8 GB a layer)"),
+    ("arctic-480b",
+     dict(layers=35, d_model=7168, heads=56, kv_heads=8, head_dim=128,
+          d_ff=4864, vocab=32000, window=None, experts=128, top_k=2,
+          expert_d_ff=4864, dense_residual=True, param_dtype="bfloat16"),
+     2, "35 layers of bfloat16 params need 953 GB (27.2 GB a layer)"),
+    ("zamba2-2.7b",
+     dict(layers=54, d_model=2560, heads=32, kv_heads=32, head_dim=80,
+          d_ff=10240, vocab=32000, ssm_state=64, ssm_heads=80,
+          shared_attn_every=6, chunk=256, param_dtype="float32"),
+     None, None),
+    ("rwkv6-3b",
+     dict(layers=32, d_model=2560, heads=40, kv_heads=40, head_dim=64,
+          d_ff=8960, vocab=65536, chunk=16, attn_kind="none",
+          param_dtype="float32"),
+     None, None),
+]
+WIDTH_OF = {
+    "layers": lambda c: c.num_layers, "d_model": lambda c: c.d_model,
+    "heads": lambda c: c.num_heads, "kv_heads": lambda c: c.num_kv_heads,
+    "head_dim": lambda c: c.head_dim, "d_ff": lambda c: c.d_ff,
+    "vocab": lambda c: c.vocab_size, "param_dtype": lambda c: c.param_dtype,
+    "window": lambda c: c.window if c.attn_kind == "swa" else None,
+    "experts": lambda c: c.moe.num_experts, "top_k": lambda c: c.moe.top_k,
+    "expert_d_ff": lambda c: c.moe.d_ff,
+    "dense_residual": lambda c: c.moe.dense_residual,
+    "ssm_state": lambda c: c.ssm_state, "ssm_heads": lambda c: c.n_ssm_heads,
+    "shared_attn_every": lambda c: c.shared_attn_every,
+    "chunk": lambda c: c.chunk_size, "attn_kind": lambda c: c.attn_kind,
+}
+# flash launches per prefill of the depth run: one per attention
+# application (every moe layer, every application of zamba2's shared
+# block, none in rwkv6)
+FAMILY_FLASH = {"mixtral-8x7b": 8, "arctic-480b": 2, "zamba2-2.7b": 9,
+                "rwkv6-3b": 0}
+# the MoE check's tolerance: the unit tests' bf16 bound on max |diff| /
+# max |y| (tests/test_torch_moe.py); the recurrences': the reference's
+# elementwise rtol = atol = 1e-4 (tests/test_recurrences.py)
+MOE_TOL = 2e-2
+REC_TOL = 1e-4
+FLASH_F32_TOL = 1e-3
+# flash against plain in bfloat16: phase lm's bound on max |diff| / max
+# |logit|, read for zamba2 at this many groups; and, at the depth run,
+# flash's distance from the float32 plain logits as a multiple of the
+# plain path's own bfloat16 distance from them
+FLASH_BF16_TOL = 3e-2
+FLASH_BF16_GROUPS = 1
+FLASH_BF16_NOISE = 1.1
+DENSE_BLOCK = 1024
+
+
+def _attn_per_prefill(cfg) -> int:
+    return {"moe": cfg.num_layers,
+            "hybrid": cfg.num_layers // cfg.shared_attn_every,
+            "rwkv": 0}[cfg.family]
+
+
+def _moe_check(cfg, params, toks, tag):
+    """The first layer's MoE input at batch (b), captured from a forward
+    of ``toks``, in blocks of ``DENSE_BLOCK`` tokens: per block the sparse
+    ``moe_forward`` at a capacity factor whose capacity holds the block's
+    fullest expert (0 pairs dropped) against
+    ``moe_forward_dense_fallback`` (with nothing dropped each token's
+    result is its own, so the blocks change nothing; whole, the random
+    router's skew would ask a capacity near T of every expert, and the
+    oracle's [T, E, ff] buffers would not fit beside arctic's params);
+    then, over the whole batch, the share of (token, choice) pairs the
+    config's own capacity factor drops and the per-expert load."""
+    from repro_torch.models import forward, moe
+    seen = []
+    real = moe.moe_forward
+
+    def capture(c, p, x):
+        if not seen:
+            seen.append((p, x))
+        return real(c, p, x)
+
+    moe.moe_forward = capture
+    try:
+        forward(cfg, params, {"tokens": toks})
+    finally:
+        moe.moe_forward = real
+    p, x = seen[0]
+    m = cfg.moe
+    T = x.shape[0] * x.shape[1]
+    xs = x.reshape(1, T, -1)
+    _, top_p, top_e = moe.route(cfg, p, xs[0])
+    load = torch.bincount(top_e.reshape(-1), minlength=m.num_experts)
+    c_cfg = moe.capacity(cfg, T)
+    _, _, dropped_cfg = moe.dispatch(cfg, top_p, top_e, c_cfg, x.dtype)
+    err = mag = sparse_ms = dense_ms = 0.0
+    cfs = []
+    for i in range(0, T, DENSE_BLOCK):
+        xb = xs[:, i:i + DENSE_BLOCK]
+        tb = xb.shape[1]
+        bload = torch.bincount(top_e[i:i + tb].reshape(-1),
+                               minlength=m.num_experts)
+        cf = (int(bload.max().item()) + 8) * m.num_experts / (m.top_k * tb)
+        cfg_nd = cfg.with_overrides(
+            moe=dataclasses.replace(m, capacity_factor=cf))
+        _, _, dropped = moe.dispatch(cfg_nd, top_p[i:i + tb], top_e[i:i + tb],
+                                     moe.capacity(cfg_nd, tb), x.dtype)
+        require(int(dropped.item()) == 0,
+                f"{tag}: {int(dropped.item())} pairs dropped in block {i}")
+        cfs.append(cf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse, _ = moe.moe_forward(cfg_nd, p, xb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense, _ = moe.moe_forward_dense_fallback(cfg, p, xb)
+        torch.cuda.synchronize()
+        sparse_ms += 1e3 * (t1 - t0)
+        dense_ms += 1e3 * (time.perf_counter() - t1)
+        require(bool(torch.isfinite(sparse).all()),
+                f"{tag}: non-finite sparse MoE output")
+        err = max(err, float((sparse.float() - dense.float()).abs().max()
+                             .item()))
+        mag = max(mag, float(dense.float().abs().max().item()))
+        del sparse, dense
+    rel = err / mag
+    require(rel <= MOE_TOL, f"{tag}: sparse MoE differs from the dense oracle "
+            f"by {rel} of the largest |y| (tolerance {MOE_TOL})")
+    _, aux = moe.moe_forward(cfg, p, x)
+    # the per-call cast of one layer's expert stacks to the activations'
+    # dtype, as moe_forward makes it (none when the params are bf16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        casts = [p[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down")]
+        del casts
+    torch.cuda.synchronize()
+    cast_ms = 1e3 * (time.perf_counter() - t0) / 3
+    lo = load.float()
+    return dict(layer=0, tokens=T, block=DENSE_BLOCK,
+                expert_cast_ms_per_layer=cast_ms,
+                expert_cast_bytes_per_layer=sum(
+                    p[k].numel() * (p[k].element_size() + x.element_size())
+                    if p[k].dtype != x.dtype else 0
+                    for k in ("w_gate", "w_up", "w_down")),
+                dtype=str(x.dtype).split(".")[-1],
+                capacity_factor_max=max(cfs), dropped=0,
+                max_abs_err=err, rel_err=rel, tol=MOE_TOL,
+                sparse_ms=sparse_ms, dense_ms=dense_ms,
+                aux_loss=float(aux.item()),
+                config_capacity_factor=m.capacity_factor,
+                config_capacity=c_cfg,
+                dropped_share_at_config=int(dropped_cfg.item()) / (T * m.top_k),
+                load=load.tolist(), load_min=int(lo.min().item()),
+                load_max=int(lo.max().item()), load_mean=float(lo.mean().item()))
+
+
+def _recurrence_check(cfg, params, toks, tag):
+    """The first recurrent layer (zamba2's first mamba layer, rwkv6's
+    first time mix) at full width on the prompt ``toks`` in float32: its
+    chunked scan against the sequential oracle on the inputs the layer
+    hands the scan (y and the final state), and the layer's output with
+    each; every element within rtol = atol = ``REC_TOL``."""
+    from repro_torch.models import layers, lm, rwkv, ssm, transformer
+    c32 = cfg.with_overrides(dtype="float32")
+    x = lm.embed(c32, params, toks)
+    if cfg.family == "hybrid":
+        p = transformer._index(params["blocks"][1], 0)
+        h = layers.apply_norm(c32, p["ln"], x)
+        mod, name, oracle = ssm, "_ssd_scan", ssm.ssd_sequential
+
+        def layer():
+            return ssm.mamba_forward(c32, p["mamba"], h)[0]
+    else:
+        p = transformer._index(params["blocks"][0], 0)
+        h = layers.apply_norm(c32, p["ln1"], x)
+        mod, name, oracle = rwkv, "_wkv_scan", rwkv.wkv_sequential
+
+        def layer():
+            return rwkv.rwkv_time_mix(c32, p["tm"], h)[0]
+    real = getattr(mod, name)
+    seen = []
+
+    def capture(*a):
+        seen.append(a)
+        return real(*a)
+
+    def run(scan):
+        setattr(mod, name, scan)
+        try:
+            return layer()
+        finally:
+            setattr(mod, name, real)
+
+    out_chunked = run(capture)
+    out_seq = run(lambda *a: oracle(*a[:6]))
+    args = seen[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_c, s_c = real(*args)
+    torch.cuda.synchronize()
+    chunked_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    y_s, s_s = oracle(*args[:6])
+    torch.cuda.synchronize()
+    seq_ms = 1e3 * (time.perf_counter() - t0)
+
+    def share(a, b):
+        """The largest |a - b| as a share of its element's bound."""
+        return float(((a - b).abs() / (REC_TOL + REC_TOL * b.abs())).max()
+                     .item())
+
+    shares = dict(y=share(y_c, y_s), state=share(s_c, s_s),
+                  layer_out=share(out_chunked, out_seq))
+    require(max(shares.values()) <= 1.0,
+            f"{tag}: the chunked scan differs from the sequential oracle: "
+            f"{shares} of the bound rtol = atol = {REC_TOL}")
+    return dict(layer=name.strip("_").replace("_scan", ""),
+                tokens=int(toks.shape[1]), chunk=cfg.chunk_size,
+                chunks=max(1, int(toks.shape[1]) // cfg.chunk_size),
+                bound_share=shares, tol=dict(rtol=REC_TOL, atol=REC_TOL),
+                max_abs_err_y=float((y_c - y_s).abs().max().item()),
+                chunked_ms=chunked_ms, sequential_ms=seq_ms)
+
+
+def _family_flash_vs_plain(cfg, params, toks, dev, attn, tag):
+    """Last-position logits of batch (b), flash against the plain
+    attention path (phase flash holds the kernel's bfloat16 route to its
+    plain version elementwise at these very calls).
+
+    bfloat16: max |flash - plain| within ``FLASH_BF16_TOL`` of the largest
+    logit, as in phase lm, at the depth run for the MoE models and at
+    ``FLASH_BF16_GROUPS`` group (6 layers, one application of the shared
+    block) for the hybrid: zamba2's 54 layers carry bfloat16 rounding to
+    6.8 % of the largest logit on the plain path alone (on an H100 80GB
+    HBM3 at 700 W), so two bfloat16 runs that round at other places
+    drift apart with depth (0.023 at 6 layers, 0.066 at 54).  At the
+    depth run, flash's bfloat16 logits lie no farther from the plain
+    path's float32 logits than ``FLASH_BF16_NOISE`` times the plain
+    path's bfloat16 logits do.  float32 (the kernel's scalar route):
+    within ``FLASH_F32_TOL`` of the largest logit, at the depth run."""
+    rel, agree, bf = _compare_prefill(cfg, params, toks, dev, attn, tag)
+    c32 = cfg.with_overrides(dtype="float32")
+    rel32, agree32, f32 = _compare_prefill(c32, params, toks, dev, attn, tag)
+    require(rel32 <= FLASH_F32_TOL, f"{tag}: flash and plain prefill logits "
+            f"differ by {rel32} of the largest logit (float32)")
+    exact = f32[False]
+    top = float(exact.abs().max().item())
+    noise = float((bf[False] - exact).abs().max().item()) / top
+    flash_vs_f32 = float((bf[True] - exact).abs().max().item()) / top
+    require(flash_vs_f32 <= FLASH_BF16_NOISE * noise,
+            f"{tag}: flash's bfloat16 logits lie {flash_vs_f32} of the "
+            f"largest logit from the float32 plain ones, the plain path's "
+            f"{noise} (bound {FLASH_BF16_NOISE}x)")
+    del bf, f32, exact
+    layers_checked = cfg.num_layers
+    rel_checked = rel
+    if cfg.family == "hybrid":
+        cfg_g = cfg.with_overrides(
+            num_layers=FLASH_BF16_GROUPS * cfg.shared_attn_every)
+        params_g = dict(params, blocks=_first_groups(params["blocks"],
+                                                     FLASH_BF16_GROUPS))
+        rel_checked, _, _ = _compare_prefill(cfg_g, params_g, toks, dev,
+                                             FLASH_BF16_GROUPS, tag)
+        layers_checked = cfg_g.num_layers
+        del params_g
+    require(rel_checked <= FLASH_BF16_TOL,
+            f"{tag}: flash and plain prefill logits differ by {rel_checked} "
+            f"of the largest logit (bfloat16, {layers_checked} layers; bound "
+            f"{FLASH_BF16_TOL})")
+    return dict(bf16_rel=rel_checked, bf16_layers=layers_checked,
+                bf16_tol=FLASH_BF16_TOL, bf16_rel_depth_run=rel,
+                bf16_greedy_agree=agree, bf16_flash_vs_f32=flash_vs_f32,
+                bf16_plain_vs_f32=noise,
+                bf16_flash_vs_f32_tol=FLASH_BF16_NOISE * noise,
+                f32_rel=rel32, f32_tol=FLASH_F32_TOL,
+                f32_greedy_agree=agree32, batch=list(toks.shape))
+
+
+def _family_run(k, arch, published, layers_run, why, dev, seed):
+    """One family at its published width, depth cut to ``layers_run``;
+    returns (its phase line, its launches on the served parts)."""
+    from repro_torch.launch.serve import (Request, _pow2_at_least,
+                                          cli_requests)
+    from repro_torch.launch.specs import model_cfg_for
+    from repro_torch.models import active_params, count_params, init_params
+    tag = f"families/{arch}"
+    t_model = time.perf_counter()
+    full = model_cfg_for(arch)
+    widths = {key: WIDTH_OF[key](full) for key in published}
+    require(widths == published,
+            f"{tag}: not at its published width: {widths}")
+    cfg = full.with_overrides(use_flash_kernel=True)
+    reduced = []
+    if layers_run is not None:
+        cfg = cfg.with_overrides(num_layers=layers_run)
+        reduced.append(dict(key="num_layers", published=full.num_layers,
+                            run=layers_run, why=why))
+    attn = _attn_per_prefill(cfg)
+    require(attn == FAMILY_FLASH[arch],
+            f"{tag}: {attn} attention applications a prefill")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 70_000 + k), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_bytes = torch.cuda.max_memory_allocated()
+
+    parts = {}
+    parts["cli"], launches = _serve_part(
+        cfg, params, cli_requests(cfg, 8, LM_NEW), 4, 128, dev, attn, tag)
+    rng = np.random.default_rng(seed + 60_000 + k)
+    long_reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                         size=int(n)).tolist(), LM_NEW)
+                 for i, n in enumerate(rng.integers(1500, 2049, size=4))]
+    require(_pow2_at_least(max(len(r.prompt) for r in long_reqs)) == 2048,
+            f"{tag}: the long prompts do not bucket to 2,048")
+    parts["long_2048"], lb = _serve_part(cfg, params, long_reqs, 4,
+                                         2048 + LM_NEW, dev, attn, tag)
+    launches = {n: launches[n] + lb[n] for n in launches}
+    if arch == "mixtral-8x7b":
+        # past the 4,096-token window: flash's window mask and the ring
+        req_8k = [Request(4, rng.integers(0, cfg.vocab_size,
+                                          size=8192).tolist(), LM_NEW)]
+        parts["long_8192"], lc = _serve_part(cfg, params, req_8k, 1,
+                                             8192 + LM_NEW, dev, attn, tag)
+        launches = {n: launches[n] + lc[n] for n in launches}
+    toks = np.zeros((4, 2048), np.int64)
+    for i, r in enumerate(long_reqs):
+        toks[i, 2048 - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).to(dev)
+    warm = _warm_prefill(cfg, params, toks, dev, flash_per_prefill=attn,
+                         tag=tag, cpu_trace=False)
+    checks = {}
+    if arch in ("mixtral-8x7b", "zamba2-2.7b"):
+        checks["flash_vs_plain"] = _family_flash_vs_plain(cfg, params, toks,
+                                                          dev, attn, tag)
+    if cfg.moe is not None:
+        checks["moe_vs_dense"] = _moe_check(cfg, params, toks, tag)
+    if cfg.family in ("hybrid", "rwkv"):
+        lens = (256, 512) if cfg.family == "hybrid" else (256,)
+        checks["recurrence"] = [_recurrence_check(
+            cfg, params, torch.tensor([long_reqs[0].prompt[:n]], device=dev),
+            tag) for n in lens]
+    n_params = count_params(cfg)
+    row = dict(
+        arch=arch, family=cfg.family, published=published,
+        layers=cfg.num_layers, reduced=reduced, param_dtype=cfg.param_dtype,
+        dtype=cfg.dtype, params=n_params,
+        params_published=count_params(full), active_params=active_params(cfg),
+        params_bytes=params_bytes, init_s=init_s,
+        flash_per_prefill=attn, parts=parts, warm_prefill=warm,
+        checks=checks, model_s=time.perf_counter() - t_model)
+    del params, toks
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def families_phase(dev, seed, t_script):
+    """Each family served in turn (each model freed before the next);
+    emits one line per model and returns the summed launches of the
+    served parts (the path's own runs: comparisons not counted)."""
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    t_phase = time.perf_counter()
+    for k, (arch, published, layers_run, why) in enumerate(FAMILIES):
+        row, launches = _family_run(k, arch, published, layers_run, why,
+                                    dev, seed)
+        total = {n: total[n] + launches[n] for n in total}
+        emit("families", **row, launches=launches,
+             phase_s=time.perf_counter() - t_phase,
+             script_s=time.perf_counter() - t_script)
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -2657,19 +3121,26 @@ def main() -> int:
     emit("lm", **lm, script_s=time.perf_counter() - t_script)
     torch.cuda.empty_cache()
 
-    # launches on the five driven paths (the cold fit, the serve phase,
+    # ---- families ---------------------------------------------------------
+    families_launches = families_phase(dev, args.seed, t_script)
+    require(families_launches["flash_attention"] > 0,
+            "families: the served families never launched flash_attention")
+
+    # launches on the six driven paths (the cold fit, the serve phase,
     # the server phase, the sharded phase's cold distributed fit plus
-    # server C, the lm phase's served parts), each counted on its own
-    # run; the distance kernels have no place on the lm path and flash
-    # none on the other four; launches_script also counts the comparison
-    # launches
+    # server C, the lm and families phases' served parts), each counted
+    # on its own run; the distance kernels have no place on the LM paths
+    # and flash none on the other four; launches_script also counts the
+    # comparison launches
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
                       "server": server_launches[name],
                       "sharded": sharded_launches[name],
-                      "lm": lm_launches[name]} for name in REPLACES}
+                      "lm": lm_launches[name],
+                      "families": families_launches[name]}
+               for name in REPLACES}
     for name, paths in by_path.items():
         off = (("fit", "serve", "server", "sharded")
-               if name == "flash_attention" else ("lm",))
+               if name == "flash_attention" else ("lm", "families"))
         require(all(paths[p] == 0 for p in off),
                 f"{name} launched on a path it has no place on: {paths}")
     extra = ("kernel_route", "graph_ms", "parent_ms", "parent_graph_ms")
@@ -2682,7 +3153,8 @@ def main() -> int:
                                      + before_sharded[r["name"]]
                                      + sharded_spent[r["name"]]
                                      + after_band[r["name"]]
-                                     + lm_launches[r["name"]]),
+                                     + lm_launches[r["name"]]
+                                     + families_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
@@ -2699,7 +3171,8 @@ def main() -> int:
                          + before_server["flash_attention"]
                          + before_sharded["flash_attention"]
                          + sharded_spent["flash_attention"]
-                         + flash_compare + lm_launches["flash_attention"]),
+                         + flash_compare + lm_launches["flash_attention"]
+                         + families_launches["flash_attention"]),
         shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
         ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
         bound_by=fr["bound_by"], library_ms=fr["library_ms"]))

@@ -2,20 +2,23 @@
 
 Each arch module defines ``config()`` (the exact published configuration)
 and ``smoke_config()`` (same family, reduced: few layers, thin width,
-tiny vocab) used by the CPU tests.  The port has the dense family so far;
-the other archs of the reference's registry raise a ``ValueError`` until
-their families are ported (ROADMAP A17).
+tiny vocab) used by the CPU tests.  The port has the decoder-only
+families (dense, moe, hybrid, rwkv); the encoder-decoder and VLM archs of
+the reference's registry raise a ``ValueError`` until their families are
+ported (ROADMAP A17).
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen2_1_5b", "stablelm_3b", "qwen1_5_0_5b", "gemma2_27b"]
+ARCHS = [
+    "rwkv6_3b", "mixtral_8x7b", "arctic_480b", "qwen2_1_5b", "stablelm_3b",
+    "qwen1_5_0_5b", "gemma2_27b", "zamba2_2_7b",
+]
 
 # archs of the reference's registry whose families the port lacks
-NOT_YET = ["rwkv6_3b", "mixtral_8x7b", "arctic_480b", "whisper_small",
-           "zamba2_2_7b", "internvl2_1b"]
+NOT_YET = ["whisper_small", "internvl2_1b"]
 
 
 def canonical(arch: str) -> str:
@@ -32,9 +35,14 @@ def get_config(arch: str, smoke: bool = False):
     name = canonical(arch)
     if name in NOT_YET:
         raise ValueError(f"arch {arch!r} is not ported yet: the port runs "
-                         f"the dense family ({', '.join(ARCHS)}); the other "
-                         f"families are ROADMAP A17")
+                         f"the decoder-only families ({', '.join(ARCHS)}); "
+                         f"encoder-decoder and VLM are ROADMAP A17")
     if name not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke_config() if smoke else mod.config()
+
+
+def long_500k_supported(arch: str) -> bool:
+    """Sub-quadratic decode: SSM / hybrid / linear-attn / bounded-window."""
+    return canonical(arch) in ("rwkv6_3b", "zamba2_2_7b", "mixtral_8x7b")

@@ -40,13 +40,20 @@ def _numpy(t) -> np.ndarray:
 
 def lm_params_from_numpy(tree, device="cpu"):
     """The port's LM params from a tree of numpy arrays (or anything
-    ``np.asarray`` takes) of the same layout; each leaf keeps its dtype
-    (float32, the ``param_dtype`` of every ported config)."""
+    ``np.asarray`` takes) of the same layout (the expert stacks
+    ``[G, E, d, ff]``, the hybrid family's ``"shared"`` block, the rwkv
+    ``mu`` stacks alike); each leaf keeps its dtype: float32, or bfloat16
+    (arctic's ``param_dtype``; numpy holds it as ``ml_dtypes.bfloat16``,
+    carried across bit for bit)."""
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(lm_params_from_numpy(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def lm_params_to_numpy(tree):
@@ -55,7 +62,11 @@ def lm_params_to_numpy(tree):
         return {k: lm_params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(lm_params_to_numpy(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes          # numpy's bfloat16, needed only here
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def caps_from_dict(fields: Dict) -> GritCaps:

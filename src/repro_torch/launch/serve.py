@@ -1,7 +1,11 @@
 """Serving loop: batched prefill + greedy decode.
 
 ``python -m repro_torch.launch.serve --arch <id> [--smoke] [--device cpu]``
-serves a few requests from randomly initialised weights: requests arrive
+(``<id>`` any arch of the decoder-only families: qwen2-1.5b, qwen1.5-0.5b,
+stablelm-3b, gemma2-27b, mixtral-8x7b, arctic-480b, zamba2-2.7b,
+rwkv6-3b) serves a few requests from randomly initialised weights
+(``launch.specs.model_cfg_for``: arctic's params in bfloat16 outside
+``--smoke``): requests arrive
 with different prompt lengths, get left-padded into a batch of
 ``--batch-slots`` rows, are prefilled once (through the flash-attention
 kernel: the entry point sets ``use_flash_kernel``), then decoded step by

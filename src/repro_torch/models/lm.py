@@ -1,9 +1,10 @@
-"""The LM: init / forward / cache / prefill / decode (the dense family).
+"""The LM: init / forward / cache / prefill / decode (decoder-only families).
 
 Public surface used by the launcher and the tests:
 
   init_params(cfg, gen, device)         -> params (nested dicts of tensors)
   count_params(cfg)                     -> exact param count (meta device)
+  active_params(cfg)                    -> params touched per token
   forward(cfg, params, batch, cache)    -> (hidden, new cache)
   init_cache(cfg, batch, max_len, device) -> decode cache
   prefill(cfg, params, batch, cache)    -> (last logits, cache)
@@ -12,10 +13,11 @@ Public surface used by the launcher and the tests:
 The parameter tree has the reference's layout (``repro.models.lm``):
 ``{"embed": [V, d], "blocks": (one dict per block kind of the group
 layout, every leaf stacked on a leading group axis), "ln_f": {...}}``
-plus ``"head": [d, V]`` without tied embeddings, so
+plus ``"head": [d, V]`` without tied embeddings and, in the hybrid
+family, ``"shared"``: the one attention block every group applies; so
 ``convert.lm_params_from_numpy`` carries a reference tree across leaf by
-leaf.  Batch dict key: "tokens" [B, S] int.  The training loss waits for
-the training slice (ROADMAP A17).
+leaf.  Batch dict key: "tokens" [B, S] int.  The training loss (and the
+MoE aux loss it adds) waits for the training slice (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ import torch
 
 from . import layers as L
 from .config import LMConfig
-from .transformer import (group_layout, init_block_cache, num_groups,
-                          stack_forward, stack_params)
+from .transformer import (block_params, group_layout, init_block_cache,
+                          leaves, num_groups, stack_forward, stack_params)
 
 
 # --------------------------------------------------------------------------
@@ -49,24 +51,26 @@ def init_params(cfg: LMConfig, gen: Optional[torch.Generator], device) -> dict:
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size), device,
                                  pd)
+    if cfg.family == "hybrid":
+        p["shared"] = block_params(cfg, "attn:full", gen, device)
     return p
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def count_params(cfg: LMConfig) -> int:
     """Parameter count of ``init_params`` from shapes alone (nothing is
     allocated: the tree is built on the ``meta`` device)."""
-    return sum(t.numel() for t in _leaves(init_params(cfg, None, "meta")))
+    return sum(t.numel() for t in leaves(init_params(cfg, None, "meta")))
+
+
+def active_params(cfg: LMConfig) -> int:
+    """Params touched per token (MoE: top-k experts only)."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = (3 if cfg.mlp_kind == "glu" else 2) * cfg.d_model * m.d_ff
+    inactive = cfg.num_layers * (m.num_experts - m.top_k) * per_expert
+    return total - inactive
 
 
 # --------------------------------------------------------------------------
@@ -106,7 +110,7 @@ def forward(cfg: LMConfig, params: dict, batch: dict,
     """Trunk forward. Returns (hidden [B, S, d], new_cache)."""
     x = embed(cfg, params, batch["tokens"])
     x, new_cache = stack_forward(cfg, params["blocks"], x, group_layout(cfg),
-                                 cache=cache)
+                                 cache=cache, shared=params.get("shared"))
     x = L.apply_norm(cfg, params["ln_f"], x)
     return x, new_cache
 
@@ -116,8 +120,10 @@ def forward(cfg: LMConfig, params: dict, batch: dict,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
-    """Zeroed KV caches, one per block kind of the layout with a leading
-    group axis, and the shared position ``pos`` (a Python int)."""
+    """Zeroed caches, one per block kind of the layout with a leading
+    group axis (KV for attention, one full-length KV per shared-attention
+    application; the recurrent states of rwkv / mamba), and the shared
+    position ``pos`` (a Python int)."""
     dtype = L.dtype_of(cfg.dtype)
     G = num_groups(cfg)
     return {"pos": 0,

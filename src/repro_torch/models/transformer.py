@@ -1,4 +1,4 @@
-"""Block assembly and layer stacks (the dense family).
+"""Block assembly and layer stacks for the decoder-only families.
 
 Layers are organized into *groups*: ``group_layout(cfg)`` returns the
 static tuple of block kinds that make up one group, and the full network
@@ -8,12 +8,14 @@ with ``lax.scan``; rematerialisation is a training concern and has no
 counterpart here).  Examples:
 
   qwen2     -> ("attn:full",) x 28 groups
+  mixtral   -> ("moe:swa",) x 32
   gemma2    -> ("attn:swa", "attn:full") x 23   (local/global alternation)
+  zamba2    -> ("shared_attn", "mamba" x 6) x 9 (shared-params attn block)
+  rwkv6     -> ("rwkv",) x 32
 
 Block kinds carry their attention window statically.  The kinds of the
-other families (``moe:*``, ``rwkv``, ``mamba``, ``shared_attn``,
-``dec_attn``, ``enc_attn``) raise ``NotImplementedError`` until their
-families are ported (ROADMAP A17).
+encoder-decoder and VLM families (``enc_attn``, ``dec_attn``) raise
+``NotImplementedError`` until those families are ported (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -23,13 +25,20 @@ from typing import Optional, Tuple
 import torch
 
 from . import layers as L
+from . import moe as M
+from . import rwkv as R
+from . import ssm as SSM
 from .config import LMConfig
+
+KINDS = ("attn:full", "attn:swa", "moe:full", "moe:swa", "rwkv", "mamba",
+         "shared_attn")
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the dense family "
-        f"(block kinds attn:full / attn:swa); the others are ROADMAP A17")
+        f"{what} is not ported yet: the port runs the decoder-only "
+        f"families (block kinds {', '.join(KINDS)}); the encoder-decoder "
+        f"and VLM families are ROADMAP A17")
 
 
 # --------------------------------------------------------------------------
@@ -37,16 +46,25 @@ def _not_ported(what: str) -> NotImplementedError:
 # --------------------------------------------------------------------------
 
 def group_layout(cfg: LMConfig) -> Tuple[str, ...]:
-    if cfg.family != "dense":
-        raise _not_ported(f"family {cfg.family!r}")
-    if cfg.attn_kind == "local_global":
-        return ("attn:swa", "attn:full")
-    if cfg.attn_kind == "swa":
-        return ("attn:swa",)
-    return ("attn:full",)
+    if cfg.family == "dense":
+        if cfg.attn_kind == "local_global":
+            return ("attn:swa", "attn:full")
+        if cfg.attn_kind == "swa":
+            return ("attn:swa",)
+        return ("attn:full",)
+    if cfg.family == "moe":
+        return ("moe:swa",) if cfg.attn_kind == "swa" else ("moe:full",)
+    if cfg.family == "rwkv":
+        return ("rwkv",)
+    if cfg.family == "hybrid":
+        return ("shared_attn",) + ("mamba",) * cfg.shared_attn_every
+    raise _not_ported(f"family {cfg.family!r}")
 
 
 def num_groups(cfg: LMConfig) -> int:
+    if cfg.family == "hybrid":
+        assert cfg.num_layers % cfg.shared_attn_every == 0
+        return cfg.num_layers // cfg.shared_attn_every
     per = len(group_layout(cfg))
     assert cfg.num_layers % per == 0
     return cfg.num_layers // per
@@ -57,7 +75,7 @@ def _kind_window(cfg: LMConfig, kind: str) -> Optional[int]:
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn:full", "attn:swa"):
+    if kind not in KINDS:
         raise _not_ported(f"block kind {kind!r}")
 
 
@@ -68,33 +86,107 @@ def _check_kind(kind: str) -> None:
 def block_params(cfg: LMConfig, kind: str, gen, device, lead=()) -> dict:
     """One block's params; ``lead`` prepends stacked axes to every leaf."""
     _check_kind(kind)
-    return {"ln1": L.norm_params(cfg, device, lead),
-            "attn": L.attn_params(cfg, gen, device, lead),
-            "ln2": L.norm_params(cfg, device, lead),
-            "mlp": L.mlp_params(cfg, gen, device, lead)}
+    if kind.startswith("attn:"):
+        return {"ln1": L.norm_params(cfg, device, lead),
+                "attn": L.attn_params(cfg, gen, device, lead),
+                "ln2": L.norm_params(cfg, device, lead),
+                "mlp": L.mlp_params(cfg, gen, device, lead)}
+    if kind.startswith("moe:"):
+        p = {"ln1": L.norm_params(cfg, device, lead),
+             "attn": L.attn_params(cfg, gen, device, lead),
+             "ln2": L.norm_params(cfg, device, lead),
+             "moe": M.moe_params(cfg, gen, device, lead)}
+        if cfg.moe.dense_residual:
+            p["mlp"] = L.mlp_params(cfg, gen, device, lead)
+        return p
+    if kind == "rwkv":
+        return {"ln1": L.norm_params(cfg, device, lead),
+                "tm": R.rwkv_time_mix_params(cfg, gen, device, lead),
+                "ln2": L.norm_params(cfg, device, lead),
+                "cm": R.rwkv_channel_mix_params(cfg, gen, device, lead)}
+    if kind == "mamba":
+        return {"ln": L.norm_params(cfg, device, lead),
+                "mamba": SSM.mamba_params(cfg, gen, device, lead)}
+    return {}                      # shared_attn: params live at params["shared"]
 
 
 def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
                      dtype, device, lead=()) -> dict:
     _check_kind(kind)
+    d = cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
+
+    if kind == "rwkv":
+        Dh_r = d // cfg.num_heads
+        return {"wkv": zeros(cfg.num_heads, Dh_r, Dh_r, dt=torch.float32),
+                "shift_tm": zeros(d), "shift_cm": zeros(d)}
+    if kind == "mamba":
+        nh = cfg.n_ssm_heads
+        return {"ssm": zeros(nh, cfg.ssm_state, cfg.d_inner // nh,
+                             dt=torch.float32),
+                "conv": zeros(cfg.conv_width - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state)}
+    # attn:* / moe:* (ring buffer of the window) and shared_attn (full)
     window = _kind_window(cfg, kind)
     S_c = max_len if window is None else min(max_len, window)
-    shape = (*lead, batch, cfg.num_kv_heads, S_c, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(cfg.num_kv_heads, S_c, cfg.head_dim),
+            "v": zeros(cfg.num_kv_heads, S_c, cfg.head_dim)}
+
+
+def _copy_into(cache: dict, new: dict) -> None:
+    """Write a recurrent block's new state into its cache views."""
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
-                  freqs: torch.Tensor, cache: Optional[dict]) -> torch.Tensor:
-    """One block; ``cache`` ({"k", "v", "pos"}), when given, is written in
-    place."""
+                  freqs: torch.Tensor, cache: Optional[dict],
+                  shared: Optional[dict] = None) -> torch.Tensor:
+    """One block; ``cache``, when given, is written in place (attention:
+    {"k", "v", "pos"}; rwkv: {"wkv", "shift_tm", "shift_cm"}; mamba:
+    {"ssm", "conv"}).  The MoE aux loss is a training term: serving
+    drops it."""
     _check_kind(kind)
-    h = L.apply_norm(cfg, p["ln1"], x)
-    a, _ = L.attn_forward(cfg, p["attn"], h, freqs,
-                          window=_kind_window(cfg, kind), cache=cache)
-    x = x + a
-    h = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.mlp_forward(cfg, p["mlp"], h)
+    if kind == "shared_attn":
+        # falls through to the attention path with full-window KV
+        p, kind = shared, "attn:full"
+    if kind.startswith("attn:") or kind.startswith("moe:"):
+        h = L.apply_norm(cfg, p["ln1"], x)
+        a, _ = L.attn_forward(cfg, p["attn"], h, freqs,
+                              window=_kind_window(cfg, kind), cache=cache)
+        x = x + a
+        h = L.apply_norm(cfg, p["ln2"], x)
+        if kind.startswith("moe:"):
+            y, _ = M.moe_forward(cfg, p["moe"], h)
+            if cfg.moe.dense_residual:
+                y = y + L.mlp_forward(cfg, p["mlp"], h)
+        else:
+            y = L.mlp_forward(cfg, p["mlp"], h)
+        return x + y
+    if kind == "rwkv":
+        st_tm = None if cache is None else \
+            {"wkv": cache["wkv"], "shift": cache["shift_tm"]}
+        h = L.apply_norm(cfg, p["ln1"], x)
+        a, new_tm = R.rwkv_time_mix(cfg, p["tm"], h, st_tm)
+        x = x + a
+        st_cm = None if cache is None else {"shift": cache["shift_cm"]}
+        h = L.apply_norm(cfg, p["ln2"], x)
+        y, new_cm = R.rwkv_channel_mix(cfg, p["cm"], h, st_cm)
+        if cache is not None:
+            _copy_into(cache, {"wkv": new_tm["wkv"],
+                               "shift_tm": new_tm["shift"],
+                               "shift_cm": new_cm["shift"]})
+        return x + y
+    # mamba
+    st = None if cache is None else {"ssm": cache["ssm"],
+                                     "conv": cache["conv"]}
+    h = L.apply_norm(cfg, p["ln"], x)
+    y, new_st = SSM.mamba_forward(cfg, p["mamba"], h, st)
+    if cache is not None:
+        _copy_into(cache, new_st)
+    return x + y
 
 
 # --------------------------------------------------------------------------
@@ -114,14 +206,29 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def leaves(tree):
+    """The tensors of a nested dict / tuple tree, depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
 def stack_forward(cfg: LMConfig, stacked, x: torch.Tensor,
-                  layout: Tuple[str, ...], *, cache=None):
+                  layout: Tuple[str, ...], *, cache=None,
+                  shared: Optional[dict] = None):
     """Run `x` through all groups. cache: {"pos": int, "slots": tuple of
     per-slot caches with a leading group axis} (or None), written in
-    place.  Returns (x, new_cache)."""
+    place.  ``shared``: the hybrid family's shared attention block.
+    Returns (x, new_cache)."""
     freqs = L.rope_freqs(cfg, x.device)
     pos = None if cache is None else cache["pos"]
-    G = stacked[0]["ln1"]["scale"].shape[0]
+    # the group count of the tree itself (a shared_attn slot has no leaf)
+    G = next(leaves(stacked)).shape[0]
     for g in range(G):
         for i, kind in enumerate(layout):
             slot_cache = None
@@ -129,7 +236,7 @@ def stack_forward(cfg: LMConfig, stacked, x: torch.Tensor,
                 slot_cache = _index(cache["slots"][i], g)
                 slot_cache["pos"] = pos
             x = block_forward(cfg, kind, _index(stacked[i], g), x, freqs,
-                              slot_cache)
+                              slot_cache, shared=shared)
     new_cache = None
     if cache is not None:
         new_cache = {"pos": pos + x.shape[1], "slots": cache["slots"]}

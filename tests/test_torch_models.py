@@ -254,15 +254,18 @@ def test_params_layout_and_counts_match_the_reference():
 
 
 def test_unported_archs_and_kinds_raise():
-    for arch in ("mixtral-8x7b", "rwkv6-3b", "zamba2-2.7b", "whisper-small",
-                 "internvl2-1b", "arctic-480b"):
+    for arch in ("whisper-small", "internvl2-1b"):
         with pytest.raises(ValueError, match="A17"):
             tget_config(arch)
     cfg = tget_config("qwen2-1.5b", smoke=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        TT.group_layout(cfg.with_overrides(family="moe"))
-    with pytest.raises(NotImplementedError, match="A17"):
-        TT.block_params(cfg, "mamba", None, "cpu")
+    for family in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="A17"):
+            TT.group_layout(cfg.with_overrides(family=family))
+    for kind in ("enc_attn", "dec_attn"):
+        with pytest.raises(NotImplementedError, match="A17"):
+            TT.block_params(cfg, kind, None, "cpu")
+        with pytest.raises(NotImplementedError, match="A17"):
+            TT.init_block_cache(cfg, kind, 1, 8, torch.float32, "cpu")
 
 
 # --------------------------------------------------------------------------
