@@ -119,7 +119,11 @@ result line) as soon as a phase fails:
            windowed soft-capped layer, mixtral's 8,192-token prefill with
            its 4,096 window on 8 KV heads, and the families phase's
            prefill calls of its batch of 4 x 2,048: mixtral's, arctic's
-           and zamba2's) and at ragged, non-causal, decode,
+           and zamba2's; whisper-small's encoder self-attention over
+           1,500 frames and its cross-attention of a 256-token bucket to
+           them, both non-causal, a cross-attention with more queries
+           than keys, and internvl2-1b's prefill of 256 patches + 2,048
+           tokens on 2 KV heads) and at ragged, non-causal, decode,
            chunked-prefix and small-head shapes; each case's route
            (``wgmma`` for bf16, ``scalar`` for float32) as the library
            reports it; CUDA-event times beside the bound and, where one
@@ -142,24 +146,32 @@ result line) as soon as a phase fails:
            the KV heads; last, (b)'s two batches prefilled again warm, three
            timed calls and one under ``torch.profiler`` (device ms of all
            kernels and of the flash kernel, the device's idle share)
-  families the decoder-only families at their published widths, one line
+  families the other families at their published widths, one line
            each, each model freed before the next: mixtral-8x7b (8 of 32
            layers, float32 params), arctic-480b (2 of 35 layers, bfloat16
-           params), zamba2-2.7b and rwkv6-3b (all layers, float32), the
-           depth cut only where one 80 GB card forces it (``reduced``);
-           params from a seeded generator, bfloat16 activations, served
-           through ``launch.serve.serve_requests`` with the flash kernel:
-           the lm phase's traffic (a) and (b) without its 8,192-token
-           prompt, which only mixtral serves (past its window: flash's
-           window mask and the ring cache); flash launches per prefill
-           8 / 2 / 9 / 0 (one per attention application); (b) prefilled
-           again warm as in phase lm; flash against the plain attention
-           path for mixtral and zamba2 at (b) (last-position logits in
-           bfloat16: mixtral within 3e-2 of the largest logit at its 8
-           layers, zamba2 within 3e-2 at 6 layers, one application of
-           its shared block; both, at the depth run, no farther than 1.1
-           times the plain path from the float32 plain logits; float32
-           within 1e-3, the scalar route); for the two MoE models the first
+           params), zamba2-2.7b, rwkv6-3b, whisper-small and
+           internvl2-1b (all layers, float32), the depth cut only where
+           one 80 GB card forces it (``reduced``); params from a seeded
+           generator, bfloat16 activations, served through
+           ``launch.serve.serve_requests`` with the flash kernel (whisper
+           on the reference CLI's zero frames, internvl2 on its zero
+           patches ahead of the prompt): the lm phase's traffic (a) and
+           (b) without its 8,192-token prompt, which only mixtral serves
+           (past its window: flash's window mask and the ring cache);
+           whisper's (b) is 4 prompts of 128 - 256 tokens (its decoder's
+           context is 448); flash launches per prefill 8 / 2 / 9 / 0 /
+           36 / 24 (one per attention application: whisper's 12 encoder
+           layers, 12 decoder self- and 12 cross-attentions) and none in
+           a decode step; (b) prefilled again warm as in phase lm; flash
+           against the plain attention path for mixtral, zamba2, whisper
+           and internvl2 at (b), whisper and internvl2 on seeded frames /
+           patches (last-position logits in bfloat16: within 3e-2 of the
+           largest logit, mixtral at its 8 layers, zamba2 at 6, one
+           application of its shared block; all, at the depth run, no
+           farther than 1.1 times the plain path from the float32 plain
+           logits; float32 within 1e-3, the scalar route; whisper's
+           encoder output in bfloat16 within 3e-2 of its largest value);
+           for the two MoE models the first
            layer's MoE input at (b) through the sparse dispatch at a
            capacity that drops nothing against the dense oracle (within
            2e-2 of the largest |y|), the share of (token, choice) pairs
@@ -2092,6 +2104,19 @@ FLASH_CASES = [
      None),
     ("zamba2_prefill", 4, 32, 32, 2048, 2048, 80, "bfloat16", True, None,
      None),
+    # whisper-small's prefill calls of batch (b): the encoder's self-
+    # attention over 1,500 frames, the decoder's cross-attention of a
+    # 256-token bucket to them (non-causal, ragged Sk); a cross-attention
+    # with more queries than keys (a negative q_offset); internvl2-1b's
+    # prefill of batch (b), 256 patches + 2,048 tokens, 14 heads on 2
+    ("whisper_encoder", 4, 12, 12, 1500, 1500, 64, "bfloat16", False, None,
+     None),
+    ("whisper_cross", 4, 12, 12, 256, 1500, 64, "bfloat16", False, None,
+     None),
+    ("cross_sq_over_sk", 2, 12, 12, 2048, 1500, 64, "bfloat16", False, None,
+     None),
+    ("internvl2_prefill", 4, 14, 2, 2304, 2304, 64, "bfloat16", True, None,
+     None),
 ]
 # the kernel against its plain version, elementwise |got - want| <=
 # rtol·|want| + atol, and mean |got - want| <= FLASH_MEAN_REL·mean |want|.
@@ -2294,9 +2319,11 @@ def _serve_part(cfg, params, reqs, slots, max_len, dev, flash_per_prefill=None,
     launches = dict(ops.LAUNCHES)
     n_prefill = len(stats["prefill_s"])
     per = cfg.num_layers if flash_per_prefill is None else flash_per_prefill
+    # exactly ``per`` a prefill and none in any decode step
     require(launches["flash_attention"] == per * n_prefill,
             f"{tag}: {launches['flash_attention']} flash_attention launches "
-            f"for {n_prefill} prefill calls, expected {per} a call")
+            f"for {n_prefill} prefill calls and {len(stats['decode_s'])} "
+            f"decode steps, expected {per} a prefill and 0 a step")
     tokens = sum(len(r.out) for r in done)
     require(all(len(r.out) == r.max_new for r in done)
             and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
@@ -2318,19 +2345,22 @@ def _serve_part(cfg, params, reqs, slots, max_len, dev, flash_per_prefill=None,
 
 
 def _compare_prefill(cfg, params, toks, dev, attn_per_prefill=None,
-                     tag="lm"):
-    """Last-position logits of one prefill with the flash kernel and with
+                     tag="lm", extra=None):
+    """Last-position logits of one prefill of ``toks`` (and the stub
+    inputs ``extra``: frames, patches) with the flash kernel and with
     the plain attention path: (max |diff| / max |logit|, greedy-token
     agreement, {True: the flash logits, False: the plain ones}).  The
     flash prefill must make no broadcast copy of the KV heads (the kernel
     reads them in place); the plain one makes two per attention
     application (``attn_per_prefill``, default one a layer)."""
+    from repro_torch.launch.serve import cache_len
     from repro_torch.models import init_cache, layers, prefill
     out = {}
     real_copy = layers._broadcast_kv
     for flash in (True, False):
         c = cfg.with_overrides(use_flash_kernel=flash)
-        cache = init_cache(c, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+        cache = init_cache(c, toks.shape[0],
+                           cache_len(c, toks.shape[1] + LM_NEW), dev)
         copies = []
 
         def counted(k, group):
@@ -2339,7 +2369,8 @@ def _compare_prefill(cfg, params, toks, dev, attn_per_prefill=None,
 
         layers._broadcast_kv = counted
         try:
-            out[flash], _ = prefill(c, params, {"tokens": toks}, cache)
+            out[flash], _ = prefill(c, params,
+                                    {"tokens": toks, **(extra or {})}, cache)
         finally:
             layers._broadcast_kv = real_copy
         per = c.num_layers if attn_per_prefill is None else attn_per_prefill
@@ -2357,7 +2388,7 @@ def _compare_prefill(cfg, params, toks, dev, attn_per_prefill=None,
 
 
 def _warm_prefill(cfg, params, toks, dev, reps=3, flash_per_prefill=None,
-                  tag="lm", cpu_trace=True):
+                  tag="lm", cpu_trace=True, extra=None):
     """Prefill of ``toks`` at a shape already served: host ms of ``reps``
     synchronised calls, then one call under ``torch.profiler``: the device
     ms of every kernel and of the flash kernel (``flash_per_prefill``
@@ -2367,14 +2398,18 @@ def _warm_prefill(cfg, params, toks, dev, reps=3, flash_per_prefill=None,
     trace device activity only, since the CPU op records of an eager
     prefill (some 800,000 for rwkv6's chunk loops) take longer to read
     back than the phase's serving; phase lm keeps both, as it has since
-    its idle share was first read."""
+    its idle share was first read.  ``extra``: the stub inputs (frames,
+    patches) the served batch carries."""
+    from repro_torch.launch.serve import cache_len
     from repro_torch.models import init_cache, prefill
+    batch = {"tokens": toks, **(extra or {})}
+    n_cache = cache_len(cfg, toks.shape[1] + LM_NEW)
 
     def once():
-        cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+        cache = init_cache(cfg, toks.shape[0], n_cache, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(cfg, params, {"tokens": toks}, cache)
+        prefill(cfg, params, batch, cache)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
@@ -2390,11 +2425,11 @@ def _warm_prefill(cfg, params, toks, dev, reps=3, flash_per_prefill=None,
     for _ in range(2):
         from repro_torch.kernels import ops
         before = ops.LAUNCHES["flash_attention"]
-        cache = init_cache(cfg, toks.shape[0], toks.shape[1] + LM_NEW, dev)
+        cache = init_cache(cfg, toks.shape[0], n_cache, dev)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            prefill(cfg, params, {"tokens": toks}, cache)
+            prefill(cfg, params, batch, cache)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         del cache
@@ -2500,7 +2535,7 @@ def lm_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
-# families: the decoder-only families at their published widths
+# families: the other families at their published widths
 # --------------------------------------------------------------------------
 
 # (arch, its published widths as its config states them, layers run on
@@ -2527,6 +2562,15 @@ FAMILIES = [
           d_ff=8960, vocab=65536, chunk=16, attn_kind="none",
           param_dtype="float32"),
      None, None),
+    ("whisper-small",
+     dict(layers=12, enc_layers=12, enc_seq=1500, d_model=768, heads=12,
+          kv_heads=12, head_dim=64, d_ff=3072, vocab=51865,
+          param_dtype="float32"),
+     None, None),
+    ("internvl2-1b",
+     dict(layers=24, d_model=896, heads=14, kv_heads=2, head_dim=64,
+          d_ff=4864, vocab=151655, num_patches=256, param_dtype="float32"),
+     None, None),
 ]
 WIDTH_OF = {
     "layers": lambda c: c.num_layers, "d_model": lambda c: c.d_model,
@@ -2540,12 +2584,15 @@ WIDTH_OF = {
     "ssm_state": lambda c: c.ssm_state, "ssm_heads": lambda c: c.n_ssm_heads,
     "shared_attn_every": lambda c: c.shared_attn_every,
     "chunk": lambda c: c.chunk_size, "attn_kind": lambda c: c.attn_kind,
+    "enc_layers": lambda c: c.enc_layers, "enc_seq": lambda c: c.enc_seq,
+    "num_patches": lambda c: c.num_patches,
 }
 # flash launches per prefill of the depth run: one per attention
 # application (every moe layer, every application of zamba2's shared
-# block, none in rwkv6)
+# block, none in rwkv6; whisper's 12 encoder layers, 12 decoder self-
+# and 12 cross-attentions; internvl2's 24 layers); a decode step none
 FAMILY_FLASH = {"mixtral-8x7b": 8, "arctic-480b": 2, "zamba2-2.7b": 9,
-                "rwkv6-3b": 0}
+                "rwkv6-3b": 0, "whisper-small": 36, "internvl2-1b": 24}
 # the MoE check's tolerance: the unit tests' bf16 bound on max |diff| /
 # max |y| (tests/test_torch_moe.py); the recurrences': the reference's
 # elementwise rtol = atol = 1e-4 (tests/test_recurrences.py)
@@ -2553,7 +2600,8 @@ MOE_TOL = 2e-2
 REC_TOL = 1e-4
 FLASH_F32_TOL = 1e-3
 # flash against plain in bfloat16: phase lm's bound on max |diff| / max
-# |logit|, read for zamba2 at this many groups; and, at the depth run,
+# |logit| (whisper's encoder output: of max |enc_out|), read for zamba2
+# at this many groups; and, at the depth run,
 # flash's distance from the float32 plain logits as a multiple of the
 # plain path's own bfloat16 distance from them
 FLASH_BF16_TOL = 3e-2
@@ -2565,7 +2613,8 @@ DENSE_BLOCK = 1024
 def _attn_per_prefill(cfg) -> int:
     return {"moe": cfg.num_layers,
             "hybrid": cfg.num_layers // cfg.shared_attn_every,
-            "rwkv": 0}[cfg.family]
+            "rwkv": 0, "vlm": cfg.num_layers,
+            "encdec": cfg.enc_layers + 2 * cfg.num_layers}[cfg.family]
 
 
 def _moe_check(cfg, params, toks, tag):
@@ -2731,10 +2780,11 @@ def _recurrence_check(cfg, params, toks, tag):
                 chunked_ms=chunked_ms, sequential_ms=seq_ms)
 
 
-def _family_flash_vs_plain(cfg, params, toks, dev, attn, tag):
-    """Last-position logits of batch (b), flash against the plain
-    attention path (phase flash holds the kernel's bfloat16 route to its
-    plain version elementwise at these very calls).
+def _family_flash_vs_plain(cfg, params, toks, dev, attn, tag, extra=None):
+    """Last-position logits of batch (b) (with the seeded stub inputs
+    ``extra``), flash against the plain attention path (phase flash holds
+    the kernel's bfloat16 route to its plain version elementwise at these
+    very calls).
 
     bfloat16: max |flash - plain| within ``FLASH_BF16_TOL`` of the largest
     logit, as in phase lm, at the depth run for the MoE models and at
@@ -2747,9 +2797,11 @@ def _family_flash_vs_plain(cfg, params, toks, dev, attn, tag):
     path's float32 logits than ``FLASH_BF16_NOISE`` times the plain
     path's bfloat16 logits do.  float32 (the kernel's scalar route):
     within ``FLASH_F32_TOL`` of the largest logit, at the depth run."""
-    rel, agree, bf = _compare_prefill(cfg, params, toks, dev, attn, tag)
+    rel, agree, bf = _compare_prefill(cfg, params, toks, dev, attn, tag,
+                                      extra)
     c32 = cfg.with_overrides(dtype="float32")
-    rel32, agree32, f32 = _compare_prefill(c32, params, toks, dev, attn, tag)
+    rel32, agree32, f32 = _compare_prefill(c32, params, toks, dev, attn, tag,
+                                           extra)
     require(rel32 <= FLASH_F32_TOL, f"{tag}: flash and plain prefill logits "
             f"differ by {rel32} of the largest logit (float32)")
     exact = f32[False]
@@ -2785,11 +2837,52 @@ def _family_flash_vs_plain(cfg, params, toks, dev, attn, tag):
                 f32_greedy_agree=agree32, batch=list(toks.shape))
 
 
+def _seeded_stubs(cfg, batch, dev, seed):
+    """Stub frontend inputs that differ row by row, drawn as the
+    reference's tests draw them (``tests/test_models.py::_batch``): frames
+    N(0, 1), patches N(0, 1) x 0.02.  The served traffic keeps the
+    reference CLI's zeros, on which every encoder row is the same (the
+    LayerNorm of a zero row is its bias), so a comparison on them would
+    check little."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        return {"patches": torch.randn((batch, cfg.num_patches, cfg.d_model),
+                                       generator=gen, device=dev) * 0.02}
+    return {}
+
+
+def _encode_flash_vs_plain(cfg, params, frames, tag):
+    """Whisper's encoder output on seeded frames, flash against the plain
+    attention path in the run's dtype: max |diff| within
+    ``FLASH_BF16_TOL`` of max |enc_out|; flash launched once a layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encode
+    before = ops.LAUNCHES["flash_attention"]
+    out = {flash: encode(cfg.with_overrides(use_flash_kernel=flash), params,
+                         frames) for flash in (True, False)}
+    n = ops.LAUNCHES["flash_attention"] - before
+    require(n == cfg.enc_layers, f"{tag}: encode launched flash {n} times, "
+            f"not once for each of {cfg.enc_layers} layers")
+    f, p = (out[k].float() for k in (True, False))
+    require(bool(torch.isfinite(f).all()), f"{tag}: non-finite enc_out")
+    rel = float((f - p).abs().max().item() / p.abs().max().item())
+    require(rel <= FLASH_BF16_TOL, f"{tag}: flash and plain encoder outputs "
+            f"differ by {rel} of the largest |enc_out| (bound "
+            f"{FLASH_BF16_TOL})")
+    return dict(rel=rel, tol=FLASH_BF16_TOL, dtype=cfg.dtype,
+                shape=list(f.shape), flash_launches=n)
+
+
 def _family_run(k, arch, published, layers_run, why, dev, seed):
     """One family at its published width, depth cut to ``layers_run``;
-    returns (its phase line, its launches on the served parts)."""
+    returns (its phase line, its launches on the served parts).  Batch
+    (b) is 4 prompts of 1,500 - 2,048 tokens, except whisper's: 128 - 256
+    (its decoder's published context is 448 tokens), under 1,500 frames."""
     from repro_torch.launch.serve import (Request, _pow2_at_least,
-                                          cli_requests)
+                                          cli_requests, stub_inputs)
     from repro_torch.launch.specs import model_cfg_for
     from repro_torch.models import active_params, count_params, init_params
     tag = f"families/{arch}"
@@ -2820,13 +2913,14 @@ def _family_run(k, arch, published, layers_run, why, dev, seed):
     parts["cli"], launches = _serve_part(
         cfg, params, cli_requests(cfg, 8, LM_NEW), 4, 128, dev, attn, tag)
     rng = np.random.default_rng(seed + 60_000 + k)
+    lo, bucket = (128, 256) if cfg.family == "encdec" else (1500, 2048)
     long_reqs = [Request(i, rng.integers(0, cfg.vocab_size,
                                          size=int(n)).tolist(), LM_NEW)
-                 for i, n in enumerate(rng.integers(1500, 2049, size=4))]
-    require(_pow2_at_least(max(len(r.prompt) for r in long_reqs)) == 2048,
-            f"{tag}: the long prompts do not bucket to 2,048")
-    parts["long_2048"], lb = _serve_part(cfg, params, long_reqs, 4,
-                                         2048 + LM_NEW, dev, attn, tag)
+                 for i, n in enumerate(rng.integers(lo, bucket + 1, size=4))]
+    require(_pow2_at_least(max(len(r.prompt) for r in long_reqs)) == bucket,
+            f"{tag}: the long prompts do not bucket to {bucket}")
+    parts[f"long_{bucket}"], lb = _serve_part(cfg, params, long_reqs, 4,
+                                              bucket + LM_NEW, dev, attn, tag)
     launches = {n: launches[n] + lb[n] for n in launches}
     if arch == "mixtral-8x7b":
         # past the 4,096-token window: flash's window mask and the ring
@@ -2835,16 +2929,22 @@ def _family_run(k, arch, published, layers_run, why, dev, seed):
         parts["long_8192"], lc = _serve_part(cfg, params, req_8k, 1,
                                              8192 + LM_NEW, dev, attn, tag)
         launches = {n: launches[n] + lc[n] for n in launches}
-    toks = np.zeros((4, 2048), np.int64)
+    toks = np.zeros((4, bucket), np.int64)
     for i, r in enumerate(long_reqs):
-        toks[i, 2048 - len(r.prompt):] = r.prompt
+        toks[i, bucket - len(r.prompt):] = r.prompt
     toks = torch.from_numpy(toks).to(dev)
     warm = _warm_prefill(cfg, params, toks, dev, flash_per_prefill=attn,
-                         tag=tag, cpu_trace=False)
+                         tag=tag, cpu_trace=False,
+                         extra=stub_inputs(cfg, 4, dev))
     checks = {}
-    if arch in ("mixtral-8x7b", "zamba2-2.7b"):
-        checks["flash_vs_plain"] = _family_flash_vs_plain(cfg, params, toks,
-                                                          dev, attn, tag)
+    if arch in ("mixtral-8x7b", "zamba2-2.7b", "whisper-small",
+                "internvl2-1b"):
+        stubs = _seeded_stubs(cfg, 4, dev, seed + 80_000 + k)
+        checks["flash_vs_plain"] = _family_flash_vs_plain(
+            cfg, params, toks, dev, attn, tag, stubs)
+        if cfg.family == "encdec":
+            checks["encode_flash_vs_plain"] = _encode_flash_vs_plain(
+                cfg, params, stubs["frames"], tag)
     if cfg.moe is not None:
         checks["moe_vs_dense"] = _moe_check(cfg, params, toks, tag)
     if cfg.family in ("hybrid", "rwkv"):

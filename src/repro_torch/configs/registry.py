@@ -2,10 +2,8 @@
 
 Each arch module defines ``config()`` (the exact published configuration)
 and ``smoke_config()`` (same family, reduced: few layers, thin width,
-tiny vocab) used by the CPU tests.  The port has the decoder-only
-families (dense, moe, hybrid, rwkv); the encoder-decoder and VLM archs of
-the reference's registry raise a ``ValueError`` until their families are
-ported (ROADMAP A17).
+tiny vocab) used by the CPU tests.  The port has every arch of the
+reference's registry; an unknown arch raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -14,17 +12,15 @@ import importlib
 
 ARCHS = [
     "rwkv6_3b", "mixtral_8x7b", "arctic_480b", "qwen2_1_5b", "stablelm_3b",
-    "qwen1_5_0_5b", "gemma2_27b", "zamba2_2_7b",
+    "qwen1_5_0_5b", "gemma2_27b", "whisper_small", "zamba2_2_7b",
+    "internvl2_1b",
 ]
-
-# archs of the reference's registry whose families the port lacks
-NOT_YET = ["whisper_small", "internvl2_1b"]
 
 
 def canonical(arch: str) -> str:
     """Normalize public ids ('qwen2-1.5b', 'mixtral-8x7b') to module names."""
     norm = arch.replace("-", "_").replace(".", "_")
-    for a in ARCHS + NOT_YET:
+    for a in ARCHS:
         if norm == a:
             return a
     # tolerate ids like 'qwen1.5-0.5b' -> 'qwen1_5_0_5b'
@@ -33,10 +29,6 @@ def canonical(arch: str) -> str:
 
 def get_config(arch: str, smoke: bool = False):
     name = canonical(arch)
-    if name in NOT_YET:
-        raise ValueError(f"arch {arch!r} is not ported yet: the port runs "
-                         f"the decoder-only families ({', '.join(ARCHS)}); "
-                         f"encoder-decoder and VLM are ROADMAP A17")
     if name not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,17 +1,20 @@
 """Serving loop: batched prefill + greedy decode.
 
 ``python -m repro_torch.launch.serve --arch <id> [--smoke] [--device cpu]``
-(``<id>`` any arch of the decoder-only families: qwen2-1.5b, qwen1.5-0.5b,
+(``<id>`` any arch of the registry: qwen2-1.5b, qwen1.5-0.5b,
 stablelm-3b, gemma2-27b, mixtral-8x7b, arctic-480b, zamba2-2.7b,
-rwkv6-3b) serves a few requests from randomly initialised weights
-(``launch.specs.model_cfg_for``: arctic's params in bfloat16 outside
-``--smoke``): requests arrive
-with different prompt lengths, get left-padded into a batch of
-``--batch-slots`` rows, are prefilled once (through the flash-attention
-kernel: the entry point sets ``use_flash_kernel``), then decoded step by
-step with argmax.  The loop is the reference's (``repro.launch.serve``),
-kept as it is: prompts are left-padded with token 0 and no padding mask,
-every row of a batch shares one cache position, and decoding is greedy.
+rwkv6-3b, whisper-small, internvl2-1b) serves a few requests from
+randomly initialised weights (``launch.specs.model_cfg_for``: arctic's
+params in bfloat16 outside ``--smoke``): requests arrive with different
+prompt lengths, get left-padded into a batch of ``--batch-slots`` rows,
+are prefilled once (through the flash-attention kernel: the entry point
+sets ``use_flash_kernel``), then decoded step by step with argmax.  The
+loop is the reference's (``repro.launch.serve``), kept as it is: prompts
+are left-padded with token 0 and no padding mask, every row of a batch
+shares one cache position, decoding is greedy, and the stub frontends
+get zeros: whisper ``frames [B, enc_seq, d]``, internvl2 ``patches [B,
+num_patches, d]`` ahead of the prompt (its cache holds ``max_len +
+num_patches`` positions).
 Without ``--device`` it runs on the CUDA device and raises when there is
 none.
 """
@@ -29,6 +32,7 @@ import torch
 from ..engine.adaptive import resolve_device
 from ..models import decode_step, init_cache, init_params, prefill
 from ..models.config import LMConfig
+from ..models.layers import dtype_of
 from .specs import model_cfg_for
 
 
@@ -51,8 +55,9 @@ def serve_requests(cfg: LMConfig, params: dict, requests: List[Request], *,
                    stats: Optional[dict] = None) -> List[Request]:
     """Serve ``requests`` in arrival order, ``batch_slots`` at a time.
 
-    Each batch is left-padded to a power-of-two length, prefilled into a
-    fresh cache of ``max_len`` positions, then decoded for the batch's
+    Each batch is left-padded to a power-of-two length, prefilled (with
+    :func:`stub_inputs`) into a fresh cache of ``max_len`` positions (vlm:
+    plus ``num_patches``), then decoded for the batch's
     largest ``max_new`` minus one steps; a request keeps its first
     ``max_new`` tokens.  Returns the served requests (their ``out``
     filled).  ``stats``, when given, receives per batch the prefill
@@ -74,10 +79,10 @@ def serve_requests(cfg: LMConfig, params: dict, requests: List[Request], *,
         for i, r in enumerate(active):
             toks[i, plen - len(r.prompt):] = r.prompt
         t0 = time.perf_counter()
-        cache = init_cache(cfg, B, max_len, dev)
+        cache = init_cache(cfg, B, cache_len(cfg, max_len), dev)
         logits, cache = prefill(cfg, params,
-                                {"tokens": torch.from_numpy(toks).to(dev)},
-                                cache)
+                                {"tokens": torch.from_numpy(toks).to(dev),
+                                 **stub_inputs(cfg, B, dev)}, cache)
         cur = torch.argmax(logits, dim=-1)
         cur_host = cur.cpu().numpy()
         if stats is not None:
@@ -98,6 +103,23 @@ def serve_requests(cfg: LMConfig, params: dict, requests: List[Request], *,
                     r.out.append(int(cur_host[i]))
         done.extend(active)
     return done
+
+
+def stub_inputs(cfg: LMConfig, batch: int, device) -> dict:
+    """The reference CLI's stub frontend inputs, zeros in ``cfg.dtype``:
+    whisper's audio frame embeddings, internvl2's patch embeddings."""
+    n = {"encdec": ("frames", cfg.enc_seq),
+         "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if n is None:
+        return {}
+    return {n[0]: torch.zeros((batch, n[1], cfg.d_model),
+                              dtype=dtype_of(cfg.dtype), device=device)}
+
+
+def cache_len(cfg: LMConfig, max_len: int) -> int:
+    """Cache positions for prompts plus new tokens of ``max_len``: a vlm's
+    patches take ``num_patches`` more."""
+    return max_len + (cfg.num_patches if cfg.family == "vlm" else 0)
 
 
 def cli_requests(cfg: LMConfig, num_requests: int,

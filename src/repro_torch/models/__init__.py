@@ -1,5 +1,5 @@
-"""The LM stack: the decoder-only families behind one pure-function API."""
+"""The LM stack: every architecture family behind one pure-function API."""
 
 from .config import LMConfig, MoECfg, num_params
 from .lm import (init_params, forward, init_cache, prefill, decode_step,
-                 count_params, active_params)
+                 count_params, active_params, encode)

@@ -4,8 +4,7 @@ A copy of the reference's schema (``LMConfig``, ``MoECfg``,
 ``num_params``), field for field, so a configuration means the same in
 both packages.  ``LMConfig`` is a frozen (hashable) dataclass.  One
 instance fully determines parameter shapes and the forward graph for
-every assigned architecture family (the port runs the decoder-only
-ones: dense, moe, rwkv and hybrid):
+every assigned architecture family:
 
   dense   -- llama-style decoder-only (qwen2, qwen1.5, stablelm, gemma2)
   moe     -- dense + mixture-of-experts FFN (mixtral, arctic)

@@ -1,10 +1,11 @@
-"""The LM: init / forward / cache / prefill / decode (decoder-only families).
+"""The LM: init / forward / cache / prefill / decode for every family.
 
 Public surface used by the launcher and the tests:
 
   init_params(cfg, gen, device)         -> params (nested dicts of tensors)
   count_params(cfg)                     -> exact param count (meta device)
   active_params(cfg)                    -> params touched per token
+  encode(cfg, params, frames)           -> whisper's encoder output
   forward(cfg, params, batch, cache)    -> (hidden, new cache)
   init_cache(cfg, batch, max_len, device) -> decode cache
   prefill(cfg, params, batch, cache)    -> (last logits, cache)
@@ -13,11 +14,15 @@ Public surface used by the launcher and the tests:
 The parameter tree has the reference's layout (``repro.models.lm``):
 ``{"embed": [V, d], "blocks": (one dict per block kind of the group
 layout, every leaf stacked on a leading group axis), "ln_f": {...}}``
-plus ``"head": [d, V]`` without tied embeddings and, in the hybrid
-family, ``"shared"``: the one attention block every group applies; so
-``convert.lm_params_from_numpy`` carries a reference tree across leaf by
-leaf.  Batch dict key: "tokens" [B, S] int.  The training loss (and the
-MoE aux loss it adds) waits for the training slice (ROADMAP A17).
+plus ``"head": [d, V]`` without tied embeddings; in the hybrid family
+``"shared"``, the one attention block every group applies; in the
+encoder-decoder family ``"enc_blocks"`` (the encoder's stack of
+``enc_attn`` blocks) and ``"ln_enc"``; so ``convert.lm_params_from_numpy``
+carries a reference tree across leaf by leaf.  Batch dict keys: "tokens"
+[B, S] int always; "frames" [B, T, d] (whisper's stub frontend: audio
+frame embeddings) and "patches" [B, P, d] (internvl2's: patch
+embeddings).  The training loss (and the MoE aux loss it adds) waits for
+the training slice (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ def init_params(cfg: LMConfig, gen: Optional[torch.Generator], device) -> dict:
                                  pd)
     if cfg.family == "hybrid":
         p["shared"] = block_params(cfg, "attn:full", gen, device)
+    if cfg.family == "encdec":
+        p["enc_blocks"] = stack_params(cfg, gen, device, ("enc_attn",),
+                                       cfg.enc_layers)
+        p["ln_enc"] = L.norm_params(cfg, device)
     return p
 
 
@@ -105,12 +114,34 @@ def logits_for(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
 # forward (prefill trunk)
 # --------------------------------------------------------------------------
 
+def _frontend(cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Token (+ stub modality) embedding -> [B, S_total, d]: the vlm's
+    patches, cast to the activation dtype, go ahead of the tokens."""
+    x = embed(cfg, params, batch["tokens"])
+    if cfg.family == "vlm" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
+
+
+def encode(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over (stub) audio frame embeddings [B, T, d]."""
+    x = frames.to(L.dtype_of(cfg.dtype))
+    x, _ = stack_forward(cfg, params["enc_blocks"], x, ("enc_attn",))
+    return L.apply_norm(cfg, params["ln_enc"], x)
+
+
 def forward(cfg: LMConfig, params: dict, batch: dict,
             cache: Optional[dict] = None):
-    """Trunk forward. Returns (hidden [B, S, d], new_cache)."""
-    x = embed(cfg, params, batch["tokens"])
+    """Trunk forward. Returns (hidden [B, S, d], new_cache).  With
+    "frames" (encdec) the decoder attends to their encoding unless the
+    cache holds the cross-attention K / V (``prefill`` fills them)."""
+    x = _frontend(cfg, params, batch)
+    enc_out = None
+    if cfg.family == "encdec" and "frames" in batch:
+        enc_out = encode(cfg, params, batch["frames"])
     x, new_cache = stack_forward(cfg, params["blocks"], x, group_layout(cfg),
-                                 cache=cache, shared=params.get("shared"))
+                                 cache=cache, shared=params.get("shared"),
+                                 enc_out=enc_out)
     x = L.apply_norm(cfg, params["ln_f"], x)
     return x, new_cache
 
@@ -122,8 +153,10 @@ def forward(cfg: LMConfig, params: dict, batch: dict,
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
     """Zeroed caches, one per block kind of the layout with a leading
     group axis (KV for attention, one full-length KV per shared-attention
-    application; the recurrent states of rwkv / mamba), and the shared
-    position ``pos`` (a Python int)."""
+    application, and per decoder layer of encdec the cross-attention K / V
+    of ``enc_seq`` frames; the recurrent states of rwkv / mamba), and the
+    shared position ``pos`` (a Python int).  A vlm prefill takes
+    ``num_patches`` positions ahead of the prompt."""
     dtype = L.dtype_of(cfg.dtype)
     G = num_groups(cfg)
     return {"pos": 0,
@@ -133,13 +166,32 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device) -> dict:
 
 
 def prefill(cfg: LMConfig, params: dict, batch: dict, cache: dict):
-    """Run the prompt through the trunk, filling the cache (in place).
+    """Run the prompt through the trunk, filling the cache (in place);
+    encdec first encodes ``batch["frames"]`` into the cross-attention K / V.
 
     Returns (logits of the last position [B, V], cache).
     """
+    if cfg.family == "encdec":
+        cache = _fill_cross_kv(cfg, params, batch["frames"], cache)
+        batch = {k: v for k, v in batch.items() if k != "frames"}
     h, cache = forward(cfg, params, batch, cache=cache)
     logits = logits_for(cfg, params, h[:, -1:])[:, 0]
     return logits, cache
+
+
+def _fill_cross_kv(cfg: LMConfig, params: dict, frames: torch.Tensor,
+                   cache: dict) -> dict:
+    """Encode ``frames`` and write every decoder layer's cross-attention
+    K / V into the cache (in place): one product over the group axis for
+    each of K and V (the reference maps over the groups)."""
+    enc_out = encode(cfg, params, frames)                  # [B, T, d]
+    B, T, _ = enc_out.shape
+    p, slot = params["blocks"][0]["xattn"], cache["slots"][0]
+    for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
+        y = torch.matmul(enc_out, w.to(enc_out.dtype)[:, None])  # [G, B, T, .]
+        slot[name].copy_(y.reshape(-1, B, T, cfg.num_kv_heads, cfg.head_dim)
+                         .transpose(2, 3))
+    return cache
 
 
 def decode_step(cfg: LMConfig, params: dict, tokens: torch.Tensor,

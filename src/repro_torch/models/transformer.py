@@ -1,4 +1,4 @@
-"""Block assembly and layer stacks for the decoder-only families.
+"""Block assembly and layer stacks for every architecture family.
 
 Layers are organized into *groups*: ``group_layout(cfg)`` returns the
 static tuple of block kinds that make up one group, and the full network
@@ -12,10 +12,11 @@ counterpart here).  Examples:
   gemma2    -> ("attn:swa", "attn:full") x 23   (local/global alternation)
   zamba2    -> ("shared_attn", "mamba" x 6) x 9 (shared-params attn block)
   rwkv6     -> ("rwkv",) x 32
+  whisper   -> encoder ("enc_attn",) x 12 + decoder ("dec_attn",) x 12
+  internvl2 -> ("attn:full",) x 24            (the dense layout)
 
-Block kinds carry their attention window statically.  The kinds of the
-encoder-decoder and VLM families (``enc_attn``, ``dec_attn``) raise
-``NotImplementedError`` until those families are ported (ROADMAP A17).
+Block kinds carry their attention window statically.  An unknown family
+or block kind raises ``ValueError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,23 +31,12 @@ from . import rwkv as R
 from . import ssm as SSM
 from .config import LMConfig
 
-KINDS = ("attn:full", "attn:swa", "moe:full", "moe:swa", "rwkv", "mamba",
-         "shared_attn")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port runs the decoder-only "
-        f"families (block kinds {', '.join(KINDS)}); the encoder-decoder "
-        f"and VLM families are ROADMAP A17")
-
-
 # --------------------------------------------------------------------------
 # group layout
 # --------------------------------------------------------------------------
 
 def group_layout(cfg: LMConfig) -> Tuple[str, ...]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         if cfg.attn_kind == "local_global":
             return ("attn:swa", "attn:full")
         if cfg.attn_kind == "swa":
@@ -58,7 +48,9 @@ def group_layout(cfg: LMConfig) -> Tuple[str, ...]:
         return ("rwkv",)
     if cfg.family == "hybrid":
         return ("shared_attn",) + ("mamba",) * cfg.shared_attn_every
-    raise _not_ported(f"family {cfg.family!r}")
+    if cfg.family == "encdec":
+        return ("dec_attn",)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def num_groups(cfg: LMConfig) -> int:
@@ -74,19 +66,13 @@ def _kind_window(cfg: LMConfig, kind: str) -> Optional[int]:
     return cfg.window if kind.endswith(":swa") else None
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in KINDS:
-        raise _not_ported(f"block kind {kind!r}")
-
-
 # --------------------------------------------------------------------------
 # per-kind params / cache / forward
 # --------------------------------------------------------------------------
 
 def block_params(cfg: LMConfig, kind: str, gen, device, lead=()) -> dict:
     """One block's params; ``lead`` prepends stacked axes to every leaf."""
-    _check_kind(kind)
-    if kind.startswith("attn:"):
+    if kind.startswith("attn:") or kind == "enc_attn":
         return {"ln1": L.norm_params(cfg, device, lead),
                 "attn": L.attn_params(cfg, gen, device, lead),
                 "ln2": L.norm_params(cfg, device, lead),
@@ -107,12 +93,21 @@ def block_params(cfg: LMConfig, kind: str, gen, device, lead=()) -> dict:
     if kind == "mamba":
         return {"ln": L.norm_params(cfg, device, lead),
                 "mamba": SSM.mamba_params(cfg, gen, device, lead)}
-    return {}                      # shared_attn: params live at params["shared"]
+    if kind == "shared_attn":
+        return {}                  # the params live at params["shared"]
+    if kind == "dec_attn":
+        return {"ln1": L.norm_params(cfg, device, lead),
+                "attn": L.attn_params(cfg, gen, device, lead),
+                "ln_x": L.norm_params(cfg, device, lead),
+                "xattn": L.attn_params(cfg, gen, device, lead),
+                "ln2": L.norm_params(cfg, device, lead),
+                "mlp": L.mlp_params(cfg, gen, device, lead)}
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
                      dtype, device, lead=()) -> dict:
-    _check_kind(kind)
+    """A zeroed cache; the encoder's ``enc_attn`` blocks have none."""
     d = cfg.d_model
 
     def zeros(*shape, dt=dtype):
@@ -128,11 +123,19 @@ def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
                              dt=torch.float32),
                 "conv": zeros(cfg.conv_width - 1,
                               cfg.d_inner + 2 * cfg.ssm_state)}
-    # attn:* / moe:* (ring buffer of the window) and shared_attn (full)
+    if not (kind.startswith("attn:") or kind.startswith("moe:")
+            or kind in ("shared_attn", "dec_attn")):
+        raise ValueError(f"no cache for block kind {kind!r}")
+    # attn:* / moe:* (ring buffer of the window); shared_attn and dec_attn
+    # full, dec_attn also the cross-attention K / V of the encoder output
     window = _kind_window(cfg, kind)
     S_c = max_len if window is None else min(max_len, window)
-    return {"k": zeros(cfg.num_kv_heads, S_c, cfg.head_dim),
-            "v": zeros(cfg.num_kv_heads, S_c, cfg.head_dim)}
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    c = {"k": zeros(KV, S_c, Dh), "v": zeros(KV, S_c, Dh)}
+    if kind == "dec_attn":
+        c["xk"] = zeros(KV, cfg.enc_seq, Dh)
+        c["xv"] = zeros(KV, cfg.enc_seq, Dh)
+    return c
 
 
 def _copy_into(cache: dict, new: dict) -> None:
@@ -143,19 +146,24 @@ def _copy_into(cache: dict, new: dict) -> None:
 
 def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
                   freqs: torch.Tensor, cache: Optional[dict],
-                  shared: Optional[dict] = None) -> torch.Tensor:
+                  shared: Optional[dict] = None,
+                  enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block; ``cache``, when given, is written in place (attention:
-    {"k", "v", "pos"}; rwkv: {"wkv", "shift_tm", "shift_cm"}; mamba:
-    {"ssm", "conv"}).  The MoE aux loss is a training term: serving
-    drops it."""
-    _check_kind(kind)
+    {"k", "v", "pos"}; dec_attn also reads {"xk", "xv"}; rwkv: {"wkv",
+    "shift_tm", "shift_cm"}; mamba: {"ssm", "conv"}).  Without a cache a
+    dec_attn block attends to ``enc_out``.  The MoE aux loss is a training
+    term: serving drops it."""
     if kind == "shared_attn":
         # falls through to the attention path with full-window KV
         p, kind = shared, "attn:full"
-    if kind.startswith("attn:") or kind.startswith("moe:"):
+    if kind.startswith("attn:") or kind.startswith("moe:") \
+            or kind == "enc_attn":
         h = L.apply_norm(cfg, p["ln1"], x)
-        a, _ = L.attn_forward(cfg, p["attn"], h, freqs,
-                              window=_kind_window(cfg, kind), cache=cache)
+        if kind == "enc_attn":
+            a = _noncausal_self_attn(cfg, p["attn"], h)
+        else:
+            a, _ = L.attn_forward(cfg, p["attn"], h, freqs,
+                                  window=_kind_window(cfg, kind), cache=cache)
         x = x + a
         h = L.apply_norm(cfg, p["ln2"], x)
         if kind.startswith("moe:"):
@@ -179,14 +187,86 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
                                "shift_tm": new_tm["shift"],
                                "shift_cm": new_cm["shift"]})
         return x + y
-    # mamba
-    st = None if cache is None else {"ssm": cache["ssm"],
-                                     "conv": cache["conv"]}
-    h = L.apply_norm(cfg, p["ln"], x)
-    y, new_st = SSM.mamba_forward(cfg, p["mamba"], h, st)
-    if cache is not None:
-        _copy_into(cache, new_st)
-    return x + y
+    if kind == "mamba":
+        st = None if cache is None else {"ssm": cache["ssm"],
+                                         "conv": cache["conv"]}
+        h = L.apply_norm(cfg, p["ln"], x)
+        y, new_st = SSM.mamba_forward(cfg, p["mamba"], h, st)
+        if cache is not None:
+            _copy_into(cache, new_st)
+        return x + y
+    if kind == "dec_attn":
+        h = L.apply_norm(cfg, p["ln1"], x)
+        a, _ = L.attn_forward(cfg, p["attn"], h, freqs, window=None,
+                              cache=cache)
+        x = x + a
+        h = L.apply_norm(cfg, p["ln_x"], x)
+        if cache is not None:
+            xa = _cross_attn_cached(cfg, p["xattn"], h, cache["xk"],
+                                    cache["xv"])
+        else:
+            xa = _cross_attn(cfg, p["xattn"], h, enc_out)
+        x = x + xa
+        h = L.apply_norm(cfg, p["ln2"], x)
+        return x + L.mlp_forward(cfg, p["mlp"], h)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _unmasked_attn(cfg: LMConfig, q, k, v):
+    """Attention with no mask (the encoder's self-attention, the decoder's
+    cross-attention; neither soft-caps, as in the reference).  q [B, H,
+    Sq, Dh], k / v [B, KV, Sk, Dh]: the flash kernel reads them
+    un-broadcast through its GQA map, the plain paths take them broadcast
+    to every query head.  One query row (a decode step's cross-attention)
+    stays plain, as decode does (``layers.py``)."""
+    flash = cfg.use_flash_kernel and q.shape[2] > 1
+    if not flash:
+        k = L._broadcast_kv(k, cfg.q_per_kv)
+        v = L._broadcast_kv(v, cfg.q_per_kv)
+    return L.attention(q, k, v, causal=False, impl=cfg.attn_impl,
+                       chunk=cfg.attn_chunk, logit_dtype=cfg.logit_dtype,
+                       use_flash=flash)
+
+
+def _noncausal_self_attn(cfg: LMConfig, p: dict, x: torch.Tensor):
+    """The encoder's self-attention.  It rotates q / k by RoPE at positions
+    ``arange(S)``, as the reference does (Whisper itself adds learned
+    positions to the frames)."""
+    B, S, _ = x.shape
+    q, k, v = L._project_qkv(cfg, p, x)
+    pos = torch.arange(S, device=x.device)[None, :]
+    freqs = L.rope_freqs(cfg, x.device)
+    q = L.apply_rope(q, pos, freqs).transpose(1, 2)
+    k = L.apply_rope(k, pos, freqs).transpose(1, 2)
+    out = _unmasked_attn(cfg, q, k, v.transpose(1, 2))
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return out @ p["wo"].to(out.dtype)
+
+
+def _cross_attn(cfg: LMConfig, p: dict, x: torch.Tensor,
+                enc_out: torch.Tensor):
+    """Cross-attention to ``enc_out`` [B, T, d], K / V projected here."""
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
+    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, -1, KV, Dh)
+    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, -1, KV, Dh)
+    return _cross_attn_core(cfg, p, q, k.transpose(1, 2), v.transpose(1, 2))
+
+
+def _cross_attn_cached(cfg: LMConfig, p: dict, x: torch.Tensor,
+                       xk: torch.Tensor, xv: torch.Tensor):
+    """Cross-attention to the cached K / V [B, KV, T, Dh]."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    return _cross_attn_core(cfg, p, q, xk, xv)
+
+
+def _cross_attn_core(cfg: LMConfig, p: dict, q, k, v):
+    B, S = q.shape[0], q.shape[1]
+    out = _unmasked_attn(cfg, q.transpose(1, 2), k, v)
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return out @ p["wo"].to(out.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -220,10 +300,12 @@ def leaves(tree):
 
 def stack_forward(cfg: LMConfig, stacked, x: torch.Tensor,
                   layout: Tuple[str, ...], *, cache=None,
-                  shared: Optional[dict] = None):
+                  shared: Optional[dict] = None,
+                  enc_out: Optional[torch.Tensor] = None):
     """Run `x` through all groups. cache: {"pos": int, "slots": tuple of
     per-slot caches with a leading group axis} (or None), written in
-    place.  ``shared``: the hybrid family's shared attention block.
+    place.  ``shared``: the hybrid family's shared attention block;
+    ``enc_out``: the encoder output an uncached dec_attn block attends to.
     Returns (x, new_cache)."""
     freqs = L.rope_freqs(cfg, x.device)
     pos = None if cache is None else cache["pos"]
@@ -236,7 +318,7 @@ def stack_forward(cfg: LMConfig, stacked, x: torch.Tensor,
                 slot_cache = _index(cache["slots"][i], g)
                 slot_cache["pos"] = pos
             x = block_forward(cfg, kind, _index(stacked[i], g), x, freqs,
-                              slot_cache, shared=shared)
+                              slot_cache, shared=shared, enc_out=enc_out)
     new_cache = None
     if cache is not None:
         new_cache = {"pos": pos + x.shape[1], "slots": cache["slots"]}

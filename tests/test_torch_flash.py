@@ -36,6 +36,8 @@ SHAPES = [
     (1, 2, 256, 256, 64, True, 128, 30.0),        # SWA + softcap
     (1, 2, 96, 96, 80, True, None, None),         # stablelm head_dim
     (2, 2, 1, 130, 80, True, 64, None),           # decode, head_dim 80
+    (2, 2, 32, 24, 16, False, None, None),        # cross, Sq > Sk
+    (1, 2, 24, 150, 64, False, None, None),       # cross, ragged Sk
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -45,8 +47,9 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
 CARD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2.0 ** -7, 1e-4)}
 # chip_smoke.py's mean bound: mean |got - want| <= FLASH_MEAN_REL * mean |want|
 FLASH_MEAN_REL = 1e-3
-# (H, H_kv): qwen2-1.5b's 12 / 2, a group of 2, multi-query
-GQA_HEADS = [(12, 2), (8, 4), (6, 1)]
+# (H, H_kv): qwen2-1.5b's 12 / 2, internvl2-1b's 14 / 2, a group of 2,
+# multi-query
+GQA_HEADS = [(12, 2), (14, 2), (8, 4), (6, 1)]
 
 
 def _inputs(shape, dtype):
@@ -198,13 +201,15 @@ def test_kv_heads_that_do_not_divide_the_query_heads_raise():
 def test_cuda_flash_kernel_matches_its_plain_version_on_the_card():
     """The hand-written kernel against its plain version on a CUDA device
     (skipped where there is none), float32 and bfloat16, with a window,
-    a soft-cap, ragged tiles, and k / v with fewer heads than q at head
-    dim 80."""
+    a soft-cap, ragged tiles, non-causal with more queries than keys
+    (a cross-attention's), and k / v with fewer heads than q at head dim
+    80."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     for shape in ((1, 2, 100, 100, 64, True, 32, 30.0),
                   (2, 3, 1, 130, 80, True, None, None),
                   (1, 2, 70, 200, 128, False, None, None),
+                  (1, 4, 300, 150, 64, False, None, None),
                   (2, 12, 200, 200, 80, True, None, None)):
         for dtype in DTYPES:
             _, (q, k, v), _ = _inputs(shape, dtype)

@@ -253,18 +253,23 @@ def test_params_layout_and_counts_match_the_reference():
         assert torch.equal(a, b)
 
 
-def test_unported_archs_and_kinds_raise():
-    for arch in ("whisper-small", "internvl2-1b"):
-        with pytest.raises(ValueError, match="A17"):
-            tget_config(arch)
+def test_unknown_archs_families_and_kinds_raise():
+    """As in the reference: an arch, a family or a block kind it does not
+    know is a ``ValueError``; so is a cache for the encoder's blocks,
+    which have none."""
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget_config("whisper-large")
     cfg = tget_config("qwen2-1.5b", smoke=True)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            TT.group_layout(cfg.with_overrides(family=family))
-    for kind in ("enc_attn", "dec_attn"):
-        with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="unknown family"):
+        TT.group_layout(cfg.with_overrides(family="diffusion"))
+    for kind in ("gru", "cross_attn"):
+        with pytest.raises(ValueError, match="unknown block kind"):
             TT.block_params(cfg, kind, None, "cpu")
-        with pytest.raises(NotImplementedError, match="A17"):
+        with pytest.raises(ValueError, match="unknown block kind"):
+            TT.block_forward(cfg, kind, {}, torch.zeros(1, 2, cfg.d_model),
+                             TL.rope_freqs(cfg), None)
+    for kind in ("enc_attn", "cross_attn"):
+        with pytest.raises(ValueError, match="no cache"):
             TT.init_block_cache(cfg, kind, 1, 8, torch.float32, "cpu")
 
 
