@@ -179,11 +179,38 @@ result line) as soon as a phase fails:
            load; for zamba2 and rwkv6 the first recurrent layer in
            float32 on 256 (zamba2 also 512) prompt tokens, its chunked
            scan against the sequential oracle (rtol = atol = 1e-4)
+  train    the training path (``train.make_train_step``, no kernel: the
+           flash kernel has no backward and refuses grad), one line a
+           part: (a) qwen2-1.5b at its published width and depth, float32
+           master params from a seeded generator, bfloat16 activations,
+           remat, AdamW, 5 steps on ``TokenPipeline(seed=0)`` batches of
+           train_4k's 4,096 tokens, the global batch cut to 8 and run as
+           2 microbatches of 4: each step's loss / CE / grad norm / lr,
+           the median step seconds of steps 2 - 5 (CUDA events), tokens/s,
+           peak memory, then one step under ``torch.profiler`` (idle
+           share, top kernels); finite loss and grad norm, a first-step
+           CE within 0.5 of ln V, params that changed; (b) the resilient
+           loop of ``launch.train`` (``run_resilient``, ``StepGuard``,
+           ``Heartbeat``, async checkpoints under the git-ignored
+           ``build/``, ``gc_checkpoints``) at full width and 2 layers: 6
+           steps, a checkpoint every 2, a failure injected at step 3 that
+           restores step 2 and rewinds the pipeline to its saved cursor;
+           the final params equal an uninterrupted run's bit for bit
+           under ``torch.use_deterministic_algorithms(True)`` (cuBLAS's
+           workspace set to ``:4096:8`` before CUDA starts); (c) two steps
+           (the second warm) of mixtral-8x7b (1 layer; its aux loss > 0),
+           zamba2-2.7b (one group of 6), rwkv6-3b (8 layers),
+           whisper-small and internvl2-1b (whole) at their published
+           widths, batch 1 x 1,024 (whisper 1 x 256 under its 1,500
+           seeded frames; internvl2 behind 256 seeded patches): step
+           seconds, peak memory, loss, aux and grad norm.  Every cut is
+           in ``reduced``; arctic-480b trains on the CPU tests only
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
-server phase, the sharded phase, the lm phase and the families phase.
+server phase, the sharded phase, the lm phase, the families phase and
+the train phase (which must launch none).
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -2985,6 +3012,377 @@ def families_phase(dev, seed, t_script):
 
 
 # --------------------------------------------------------------------------
+# train: the training path at published widths
+# --------------------------------------------------------------------------
+
+# (a) qwen2-1.5b at full width and depth on train_4k's sequence length;
+# the global batch cut from 256 to 8, run as 2 microbatches of 4
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_BATCH = 8
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 5
+# (b) the resilient loop at full width, 2 layers: 6 steps, a checkpoint
+# every 2, a failure injected at step 3 (restores step 2)
+RESILIENT_LAYERS = 2
+RESILIENT_SHAPE = (2, 1024)        # batch, sequence
+RESILIENT_STEPS = 6
+RESILIENT_EVERY = 2
+RESILIENT_FAIL_AT = 3
+TRAIN_CKPT_DIR = os.path.join("build", "chip_smoke_train_ckpt")
+# (c) one step (and a warm second) of each other family at its published
+# widths, batch 1 x 1,024 (whisper 1 x 256 under its 1,500 frames), the
+# depth cut to what one card holds with AdamW state (16 B a parameter)
+TRAIN_FAMILIES = [
+    ("mixtral-8x7b", 1, "1 layer: 1.71 G params x 16 B of AdamW state "
+     "= 27 GB, plus the same again while the update writes the new state"),
+    ("zamba2-2.7b", 6, "one group: 6 mamba blocks and one application of "
+     "the shared attention block"),
+    ("rwkv6-3b", 8, "8 of 32 layers: the chunk loop's backward at 64 chunks "
+     "a layer; 32 layers need 49 GB of state before activations"),
+    ("whisper-small", None, None),
+    ("internvl2-1b", None, None),
+]
+TRAIN_FAMILY_SEQ = {"whisper-small": 256}
+TRAIN_FAMILY_SEQ_DEFAULT = 1024
+
+
+def _step_ms(step, state, batch):
+    """One train step timed by CUDA events (synchronised); returns (state,
+    metrics, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    state, m = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return state, m, start.elapsed_time(end)
+
+
+def _metrics_host(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def _traced_step(step, state, batch, tag):
+    """One step under ``torch.profiler`` (device activity only): the
+    share of its wall time with no kernel running, kernel ms, and the
+    top kernels by device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Command Buffer" not in e.name]
+    require(kern, f"{tag}: the traced step shows no kernel")
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        n = e.name[:80]
+        ms, calls = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
+    return state, m, dict(
+        profiled_wall_ms=wall, kernel_ms=busy, kernels=len(kern),
+        idle_share=max(0.0, 1.0 - busy / wall),
+        top_kernels=[dict(name=n, ms=ms, calls=c) for n, (ms, c) in top])
+
+
+def _finite(m, tag):
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        require(math.isfinite(m[k]), f"{tag}: {k} is {m[k]}")
+
+
+def _train_qwen2(dev, seed):
+    """(a): 5 steps of qwen2-1.5b at its published width and depth on
+    ``TokenPipeline(seed=0)`` batches of 8 x 4,096 in 2 microbatches,
+    then one traced step."""
+    from repro_torch.configs import get_shape
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.specs import (model_cfg_for, train_batch,
+                                          train_cfg_for)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train import (get_optimizer, init_state,
+                                   make_train_step, warmup_cosine)
+    from repro_torch.train.tree import flatten
+    tag = "train/qwen2"
+    shape = get_shape("train_4k")
+    cfg = model_cfg_for(TRAIN_ARCH)
+    require(cfg.remat and not cfg.use_flash_kernel
+            and cfg.param_dtype == "float32" and cfg.dtype == "bfloat16",
+            f"{tag}: not the float32-master, bf16, remat config")
+    tcfg = dataclasses.replace(train_cfg_for(TRAIN_ARCH),
+                               microbatches=TRAIN_MICROBATCHES)
+    opt = get_optimizer(tcfg.optimizer)
+    step = make_train_step(cfg, tcfg, opt, warmup_cosine(
+        tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 90_000), dev)
+    state = init_state(cfg, tcfg, opt, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.max_memory_allocated()
+    first = [p.clone() for p in flatten(params)[0][:2]]
+    del params
+    pipe = TokenPipeline(cfg.vocab_size, shape.seq_len, TRAIN_BATCH, seed=0)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = train_batch(cfg, pipe.next_batch()["tokens"], dev)
+        state, m, ms = _step_ms(step, state, batch)
+        mh = _metrics_host(m)
+        _finite(mh, tag)
+        steps.append(dict(ms=ms, **mh))
+    peak = torch.cuda.max_memory_allocated()
+    state, m, traced = _traced_step(
+        step, state, train_batch(cfg, pipe.next_batch()["tokens"], dev), tag)
+    _finite(_metrics_host(m), tag)
+    ln_v = math.log(cfg.vocab_size)
+    require(abs(steps[0]["ce"] - ln_v) <= 0.5,
+            f"{tag}: first-step CE {steps[0]['ce']} not within 0.5 of "
+            f"ln V = {ln_v}")
+    changed = [bool((p != q).any()) for p, q in
+               zip(first, flatten(state["params"])[0][:2])]
+    require(all(changed), f"{tag}: params unchanged after "
+            f"{TRAIN_STEPS + 1} steps: {changed}")
+    warm = sorted(s["ms"] for s in steps[1:])
+    step_ms = warm[len(warm) // 2] if len(warm) % 2 else \
+        0.5 * (warm[len(warm) // 2 - 1] + warm[len(warm) // 2])
+    tokens = TRAIN_BATCH * shape.seq_len
+    del state, first
+    torch.cuda.empty_cache()
+    return dict(
+        arch=TRAIN_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=count_params(cfg),
+        param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat=cfg.remat,
+        optimizer=tcfg.optimizer, seq_len=shape.seq_len,
+        global_batch=TRAIN_BATCH, microbatches=TRAIN_MICROBATCHES,
+        reduced=[dict(key="global_batch", published=shape.global_batch,
+                      run=TRAIN_BATCH,
+                      why=f"{shape.name}'s 256 x 4,096 tokens a step: "
+                          f"a 5-step smoke run takes 8, as 2 microbatches "
+                          f"of 4")],
+        init_s=init_s, state_bytes=state_bytes, steps=steps,
+        step_s_median_2_5=step_ms / 1e3,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        max_memory_allocated=peak, first_ce=steps[0]["ce"], ln_vocab=ln_v,
+        traced_step=traced)
+
+
+def _train_resilient(dev, seed):
+    """(b): ``run_resilient`` (``StepGuard``, ``Heartbeat``, async
+    checkpoints, ``gc_checkpoints``) at qwen2's width, 2 layers: 6 steps,
+    a checkpoint every 2, a failure injected at step 3 that restores step
+    2, the pipeline rewound to the restored cursor; the final params equal
+    those of an uninterrupted run bit for bit, under
+    ``torch.use_deterministic_algorithms(True)``."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.cluster import Heartbeat, StepGuard, run_resilient
+    from repro_torch.launch.specs import (model_cfg_for, train_batch,
+                                          train_cfg_for)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train import (get_optimizer, init_state,
+                                   make_train_step, warmup_cosine)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import flatten
+    tag = "train/resilient"
+    full = model_cfg_for(TRAIN_ARCH)
+    cfg = full.with_overrides(num_layers=RESILIENT_LAYERS)
+    B, S = RESILIENT_SHAPE
+    tcfg = dataclasses.replace(train_cfg_for(TRAIN_ARCH), warmup_steps=1,
+                               total_steps=RESILIENT_STEPS)
+    opt = get_optimizer(tcfg.optimizer)
+    step = make_train_step(cfg, tcfg, opt, warmup_cosine(
+        tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps))
+
+    def fresh():
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed + 91_000), dev)
+        return init_state(cfg, tcfg, opt, params)
+
+    def pipeline():
+        return TokenPipeline(cfg.vocab_size, S, B, seed=0)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        state, pipe = fresh(), pipeline()
+        for _ in range(RESILIENT_STEPS):
+            state, _ = step(state, train_batch(
+                cfg, pipe.next_batch()["tokens"], dev))
+        want = [p.clone() for p in flatten(state["params"])[0]]
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        del state
+
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+        live = {"pipe": pipeline()}
+        saved, restored, losses, fired = {}, [], [], []
+
+        def pipeline_state():
+            cur = live["pipe"].state()
+            saved[cur["cursor"]] = dict(cur)
+            return {"pipeline": cur}
+
+        def on_restore(extra):
+            restored.append(dict(extra["pipeline"]))
+            live["pipe"] = TokenPipeline.from_state(
+                cfg.vocab_size, S, B, extra["pipeline"])
+
+        def inject(i):
+            if i == RESILIENT_FAIL_AT and not fired:
+                fired.append(i)
+                return RuntimeError("injected failure")
+            return None
+
+        hb = Heartbeat(TRAIN_CKPT_DIR, host_id=0)
+
+        def on_metrics(i, m):
+            hb.beat()
+            losses.append(float(m["loss"]))
+
+        t0 = time.perf_counter()
+        final, ran = run_resilient(
+            fresh(), step,
+            lambda: train_batch(cfg, live["pipe"].next_batch()["tokens"],
+                                dev),
+            ckpt_dir=TRAIN_CKPT_DIR, num_steps=RESILIENT_STEPS,
+            ckpt_every=RESILIENT_EVERY, keep=2,
+            guard=StepGuard(factor=50.0),
+            pipeline_state=pipeline_state, on_metrics=on_metrics,
+            inject_failure=inject, on_restore=on_restore)
+        torch.cuda.synchronize()
+        resilient_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = flatten(final["params"])[0]
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    kept = sorted(n for n in os.listdir(TRAIN_CKPT_DIR)
+                  if n.startswith("step_"))
+    ckpt_bytes = sum(
+        os.path.getsize(os.path.join(TRAIN_CKPT_DIR, kept[-1], "arrays", f))
+        for f in os.listdir(os.path.join(TRAIN_CKPT_DIR, kept[-1], "arrays")))
+    require(fired == [RESILIENT_FAIL_AT], f"{tag}: failure not injected")
+    require(len(restored) == 1 and restored[0] == saved.get(
+        RESILIENT_EVERY), f"{tag}: restored cursor {restored} is not the "
+        f"one saved at step {RESILIENT_EVERY}: {saved}")
+    require(int(final["step"]) == RESILIENT_STEPS,
+            f"{tag}: ended at step {int(final['step'])}")
+    require(equal, f"{tag}: the restored run's params differ from the "
+            f"uninterrupted run's")
+    # gc keeps the newest 2 complete checkpoints; the one still being
+    # written when it runs is not yet complete, so 3 may remain
+    require(ckpt.latest_step(TRAIN_CKPT_DIR) == RESILIENT_STEPS
+            and kept[-2:] == [f"step_{s:09d}" for s in (4, 6)]
+            and len(kept) <= 3, f"{tag}: checkpoints kept: {kept}")
+    require(all(math.isfinite(x) for x in losses), f"{tag}: {losses}")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    del final, got, want
+    torch.cuda.empty_cache()
+    return dict(
+        arch=TRAIN_ARCH, layers=cfg.num_layers, params=count_params(cfg),
+        batch=[B, S], steps=RESILIENT_STEPS, ckpt_every=RESILIENT_EVERY,
+        fail_at=RESILIENT_FAIL_AT, restored_cursor=restored[0],
+        saved_cursors=saved, steps_run=ran, losses=losses,
+        checkpoint_bytes=ckpt_bytes, params_equal_uninterrupted=equal,
+        deterministic_algorithms=True,
+        cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        uninterrupted_s=plain_s, resilient_s=resilient_s,
+        reduced=[dict(key="num_layers", published=full.num_layers,
+                      run=RESILIENT_LAYERS,
+                      why="a checkpoint of 2 layers' state is about 4 GB, "
+                          "of 28 layers' 18.5 GB")])
+
+
+def _train_family(k, arch, layers_run, why, dev, seed):
+    """(c): two steps of ``arch`` at its published widths (the second
+    warm), depth cut to ``layers_run``; seeded frames / patches."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.specs import (model_cfg_for, train_batch,
+                                          train_cfg_for)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train import (get_optimizer, init_state,
+                                   make_train_step, warmup_cosine)
+    tag = f"train/{arch}"
+    published = next(p for a, p, _, _ in FAMILIES if a == arch)
+    full = model_cfg_for(arch)
+    widths = {key: WIDTH_OF[key](full) for key in published}
+    require(widths == published, f"{tag}: not at its published width")
+    cfg, reduced = full, []
+    if layers_run is not None:
+        cfg = cfg.with_overrides(num_layers=layers_run)
+        reduced.append(dict(key="num_layers", published=full.num_layers,
+                            run=layers_run, why=why))
+    S = TRAIN_FAMILY_SEQ.get(arch, TRAIN_FAMILY_SEQ_DEFAULT)
+    tcfg = train_cfg_for(arch)
+    if tcfg.microbatches != 1:
+        reduced.append(dict(key="microbatches", published=tcfg.microbatches,
+                            run=1, why="a batch of 1 has one microbatch"))
+        tcfg = dataclasses.replace(tcfg, microbatches=1)
+    tcfg = dataclasses.replace(tcfg, warmup_steps=1)
+    opt = get_optimizer(tcfg.optimizer)
+    step = make_train_step(cfg, tcfg, opt, warmup_cosine(
+        tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 92_000 + k)
+    state = init_state(cfg, tcfg, opt, init_params(cfg, gen, dev))
+    pipe = TokenPipeline(cfg.vocab_size, S, 1, seed=0)
+    steps = []
+    for _ in range(2):
+        batch = train_batch(cfg, pipe.next_batch()["tokens"], dev, gen=gen)
+        state, m, ms = _step_ms(step, state, batch)
+        mh = _metrics_host(m)
+        _finite(mh, tag)
+        steps.append(dict(ms=ms, **mh))
+    if cfg.moe is not None:
+        require(all(s["aux"] > 0 for s in steps), f"{tag}: aux loss is 0")
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(arch=arch, family=cfg.family, layers=cfg.num_layers,
+                params=count_params(cfg), optimizer=tcfg.optimizer,
+                batch=[1, S], steps=steps, step_s=steps[-1]["ms"] / 1e3,
+                max_memory_allocated=peak, reduced=reduced)
+
+
+def train_phase(dev, seed, t_script):
+    """(a), (b), (c); emits one line for each; returns the launches of
+    the whole phase (the training path launches no kernel: the flash
+    kernel has no backward and refuses grad)."""
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    emit("train", part="qwen2", **_train_qwen2(dev, seed),
+         phase_s=time.perf_counter() - t_phase)
+    emit("train", part="resilient", **_train_resilient(dev, seed),
+         phase_s=time.perf_counter() - t_phase)
+    for k, (arch, layers, why) in enumerate(TRAIN_FAMILIES):
+        emit("train", part="family", **_train_family(k, arch, layers, why,
+                                                      dev, seed),
+             phase_s=time.perf_counter() - t_phase)
+    launches = dict(ops.LAUNCHES)
+    require(all(v == 0 for v in launches.values()),
+            f"train: the training path launched kernels: {launches}")
+    emit("train", part="summary", launches=launches,
+         reduced_elsewhere=[dict(
+             arch="arctic-480b", run="the CPU tests only",
+             why="one layer is 14 G bf16 params and as many grads, and "
+                 "its adafactor update upcasts a 4.46 G-element expert "
+                 "leaf to float32; its adafactor and bf16 path is pinned "
+                 "by tests/test_torch_train.py")],
+         phase_s=time.perf_counter() - t_phase,
+         script_s=time.perf_counter() - t_script)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -2998,6 +3396,9 @@ def main() -> int:
                          "captured width (phase kernels, parent_ms)")
     args = ap.parse_args()
     t_script = time.perf_counter()
+    # cuBLAS's deterministic workspace, read when CUDA starts: phase
+    # train's resume check runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3225,22 +3626,29 @@ def main() -> int:
     families_launches = families_phase(dev, args.seed, t_script)
     require(families_launches["flash_attention"] > 0,
             "families: the served families never launched flash_attention")
+    torch.cuda.empty_cache()
 
-    # launches on the six driven paths (the cold fit, the serve phase,
+    # ---- train ------------------------------------------------------------
+    train_launches = train_phase(dev, args.seed, t_script)
+
+    # launches on the seven driven paths (the cold fit, the serve phase,
     # the server phase, the sharded phase's cold distributed fit plus
-    # server C, the lm and families phases' served parts), each counted
-    # on its own run; the distance kernels have no place on the LM paths
-    # and flash none on the other four; launches_script also counts the
-    # comparison launches
+    # server C, the lm and families phases' served parts, the train
+    # phase), each counted on its own run; the distance kernels have no
+    # place on the LM paths and flash none on the other four; the train
+    # path launches none (its phase requires it); launches_script also
+    # counts the comparison launches
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
                       "server": server_launches[name],
                       "sharded": sharded_launches[name],
                       "lm": lm_launches[name],
-                      "families": families_launches[name]}
+                      "families": families_launches[name],
+                      "train": train_launches[name]}
                for name in REPLACES}
     for name, paths in by_path.items():
-        off = (("fit", "serve", "server", "sharded")
-               if name == "flash_attention" else ("lm", "families"))
+        off = (("fit", "serve", "server", "sharded", "train")
+               if name == "flash_attention"
+               else ("lm", "families", "train"))
         require(all(paths[p] == 0 for p in off),
                 f"{name} launched on a path it has no place on: {paths}")
     extra = ("kernel_route", "graph_ms", "parent_ms", "parent_graph_ms")
@@ -3254,7 +3662,8 @@ def main() -> int:
                                      + sharded_spent[r["name"]]
                                      + after_band[r["name"]]
                                      + lm_launches[r["name"]]
-                                     + families_launches[r["name"]]),
+                                     + families_launches[r["name"]]
+                                     + train_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
@@ -3272,7 +3681,8 @@ def main() -> int:
                          + before_sharded["flash_attention"]
                          + sharded_spent["flash_attention"]
                          + flash_compare + lm_launches["flash_attention"]
-                         + families_launches["flash_attention"]),
+                         + families_launches["flash_attention"]
+                         + train_launches["flash_attention"]),
         shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
         ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
         bound_by=fr["bound_by"], library_ms=fr["library_ms"]))

@@ -8,7 +8,8 @@ the stage that has it.  The LM's state is its parameter tree:
 ``lm_params_from_numpy`` / ``lm_params_to_numpy`` carry a tree of numpy
 arrays in the reference's layout (nested dicts, the blocks a tuple of
 dicts stacked on a leading group axis) to tensors and back, so that both
-packages compute with the same weights.
+packages compute with the same weights; ``train_state_from_numpy`` /
+``train_state_to_numpy`` do the same for a whole train state.
 """
 
 from __future__ import annotations
@@ -69,6 +70,20 @@ def lm_params_to_numpy(tree):
     return t.numpy()
 
 
+def train_state_from_numpy(state, device="cpu"):
+    """The port's train state from a reference train state in numpy
+    (``{"params", "opt", "step"}`` and ``"ef"`` when compressing; the
+    optimizer's ``mu`` / ``nu`` (adamw), ``slots`` (adafactor), ``mu``
+    (lion) and ``count``), leaf by leaf as :func:`lm_params_from_numpy`
+    carries them: every dtype kept, the counts int32 0-d tensors."""
+    return lm_params_from_numpy(state, device)
+
+
+def train_state_to_numpy(state):
+    """The inverse of :func:`train_state_from_numpy`."""
+    return lm_params_to_numpy(state)
+
+
 def caps_from_dict(fields: Dict) -> GritCaps:
     """``GritCaps`` from ``dataclasses.asdict`` of any caps object with
     the same field names (unknown keys are rejected by the constructor)."""
@@ -111,11 +126,13 @@ def result_from_numpy(labels, core, point_grid, num_clusters, report,
         point_grid=_tensor(point_grid, torch.int32, device),
         num_clusters=_tensor(num_clusters, torch.int32, device),
         overflow=vec.any(), report=rep,
-        dispatch_tiers=_tensor(dispatch_tiers, torch.int32, device))
+        dispatch_tiers=_tensor(dispatch_tiers, torch.int32, device),
+        tier_counts=tuple(int(c) for c in np.asarray(dispatch_tiers)))
 
 
 def result_to_numpy(res: DeviceDBSCANResult) -> Dict[str, np.ndarray]:
     out = {f.name: _numpy(getattr(res, f.name))
-           for f in dataclasses.fields(res) if f.name != "report"}
+           for f in dataclasses.fields(res)
+           if f.name not in ("report", "tier_counts")}   # dispatch_tiers
     out["report"] = _numpy(res.report.as_vector())
     return out

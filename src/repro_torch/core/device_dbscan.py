@@ -186,6 +186,9 @@ class DeviceDBSCANResult:
                                # slot 3, the dense-path grid slots (0
                                # when packed); their sum is the total
                                # dispatched grid work
+    tier_counts: Tuple[int, ...] = (0, 0, 0, 0)  # the same four counts
+                               # as host ints (known to the host when it
+                               # cut the sweeps; read by the gauges)
 
 
 def _candidates_for_grids(dg: DeviceGrids, nbr: torch.Tensor,
@@ -325,7 +328,6 @@ def device_dbscan(points: torch.Tensor, eps: float, min_pts: int,
             return max(1, SWEEP_ELEMS // width)
         return max(1, PLAIN_ELEMS // (width * p_cap))
 
-    dispatch_tiers = torch.zeros((4,), dtype=torch.int32, device=dev)
     if caps.packed:
         # occupancy-packed dispatch: live small grids compacted to a
         # prefix sorted by candidate total (stable, so equal totals keep
@@ -344,11 +346,12 @@ def device_dbscan(points: torch.Tensor, eps: float, min_pts: int,
             + [small_all.sum()]))
         sweeps = [(pperm, lo, hi, w)
                   for lo, hi, w in zip([0] + cuts[:-1], cuts, tier_w)]
-        for t, (_, lo, hi, _) in enumerate(sweeps):
-            dispatch_tiers[t] = hi - lo
+        swept = [hi - lo for _, lo, hi, _ in sweeps]
+        tier_counts = tuple(swept + [0] * (4 - len(swept)))
     else:
         sweeps = [(grid_rows, 0, G, caps.c_cap)]
-        dispatch_tiers[3] = G
+        tier_counts = (0, 0, 0, G)
+    dispatch_tiers = torch.tensor(tier_counts, dtype=torch.int32, device=dev)
 
     def sweep(row_fn, acc, reduce):
         for rows_of, lo, hi, width in sweeps:
@@ -470,4 +473,5 @@ def device_dbscan(points: torch.Tensor, eps: float, min_pts: int,
                               point_grid=point_grid_orig,
                               num_clusters=num_clusters,
                               overflow=report.any(), report=report,
-                              dispatch_tiers=dispatch_tiers)
+                              dispatch_tiers=dispatch_tiers,
+                              tier_counts=tier_counts)

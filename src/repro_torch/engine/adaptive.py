@@ -454,7 +454,19 @@ def adaptive_device_dbscan(points, eps: float, min_pts: int,
         return res, OverflowReport.from_vector(
             host_read(res.report.as_vector()))
 
-    return adaptive_loop(
+    result, attempts = adaptive_loop(
         run,
         lambda c, flags: grow_caps(c, flags, n=n, d=d, growth=growth),
         dataclasses.asdict, caps, max_retries)
+    # occupancy-packed dispatch telemetry (device_dbscan module doc):
+    # grids actually swept per tier vs the grid_cap slots the dense
+    # strategy would sweep, from the host's own counts (no device read)
+    tiers = result.tier_counts
+    reg = obs.registry()
+    for i in range(3):
+        reg.gauge(f"device.dispatch.tier{i + 1}_grids").set(float(tiers[i]))
+    reg.gauge("device.dispatch.dense_slots").set(float(tiers[3]))
+    reg.gauge("device.dispatch.grids_swept").set(float(sum(tiers)))
+    reg.gauge("device.dispatch.grid_cap").set(
+        float(attempts[-1]["caps"]["grid_cap"]))
+    return result, attempts

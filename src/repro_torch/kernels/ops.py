@@ -598,8 +598,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (the kernel masks the ragged key tile itself).  On the card: float32
     or bfloat16, all three alike, contiguous, 16-byte aligned, D in
     ``FLASH_HEAD_DIMS``; :func:`flash_route` names the route each type
-    takes."""
+    takes.  It has no backward (the reference has no backward kernel
+    either), so a call under grad whose q / k / v require grad raises on
+    either device rather than train with no gradient into them."""
     name = "flash_attention"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            f"{name}: the kernel has no backward (the reference has no "
+            "backward kernel), so q / k / v that require grad would get "
+            "none; train with use_flash_kernel=False")
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape) \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or k.shape[1] < 1 or q.shape[1] % k.shape[1]:

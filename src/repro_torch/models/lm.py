@@ -6,7 +6,8 @@ Public surface used by the launcher and the tests:
   count_params(cfg)                     -> exact param count (meta device)
   active_params(cfg)                    -> params touched per token
   encode(cfg, params, frames)           -> whisper's encoder output
-  forward(cfg, params, batch, cache)    -> (hidden, new cache)
+  forward(cfg, params, batch, cache)    -> (hidden, new cache, aux)
+  loss_fn(cfg, params, batch)           -> (loss, metrics) chunked CE
   init_cache(cfg, batch, max_len, device) -> decode cache
   prefill(cfg, params, batch, cache)    -> (last logits, cache)
   decode_step(cfg, params, tokens, cache) -> (logits, cache)
@@ -21,8 +22,8 @@ encoder-decoder family ``"enc_blocks"`` (the encoder's stack of
 carries a reference tree across leaf by leaf.  Batch dict keys: "tokens"
 [B, S] int always; "frames" [B, T, d] (whisper's stub frontend: audio
 frame embeddings) and "patches" [B, P, d] (internvl2's: patch
-embeddings).  The training loss (and the MoE aux loss it adds) waits for
-the training slice (ROADMAP A17).
+embeddings); for ``loss_fn`` "tokens" is [B, S+1] and an optional
+"loss_mask" [B, S] weighs the targets.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import LMConfig
@@ -126,24 +128,71 @@ def _frontend(cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
 def encode(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over (stub) audio frame embeddings [B, T, d]."""
     x = frames.to(L.dtype_of(cfg.dtype))
-    x, _ = stack_forward(cfg, params["enc_blocks"], x, ("enc_attn",))
+    x, _, _ = stack_forward(cfg, params["enc_blocks"], x, ("enc_attn",))
     return L.apply_norm(cfg, params["ln_enc"], x)
 
 
 def forward(cfg: LMConfig, params: dict, batch: dict,
             cache: Optional[dict] = None):
-    """Trunk forward. Returns (hidden [B, S, d], new_cache).  With
-    "frames" (encdec) the decoder attends to their encoding unless the
-    cache holds the cross-attention K / V (``prefill`` fills them)."""
+    """Trunk forward. Returns (hidden [B, S, d], new_cache, aux), ``aux``
+    the MoE layers' summed load-balancing loss (f32; 0 without MoE).
+    With "frames" (encdec) the decoder attends to their encoding unless
+    the cache holds the cross-attention K / V (``prefill`` fills them)."""
     x = _frontend(cfg, params, batch)
     enc_out = None
     if cfg.family == "encdec" and "frames" in batch:
         enc_out = encode(cfg, params, batch["frames"])
-    x, new_cache = stack_forward(cfg, params["blocks"], x, group_layout(cfg),
-                                 cache=cache, shared=params.get("shared"),
-                                 enc_out=enc_out)
+    x, new_cache, aux = stack_forward(
+        cfg, params["blocks"], x, group_layout(cfg), cache=cache,
+        shared=params.get("shared"), enc_out=enc_out)
     x = L.apply_norm(cfg, params["ln_f"], x)
-    return x, new_cache
+    return x, new_cache, aux
+
+
+# --------------------------------------------------------------------------
+# loss (chunked CE; never materializes [B, S, V])
+# --------------------------------------------------------------------------
+
+def _ce_chunk(cfg: LMConfig, params: dict, h, labels, mask):
+    """Summed masked NLL of one sequence chunk, and its target count."""
+    logits = logits_for(cfg, params, h)                  # [B, C, V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    return nll.sum(), mask.sum()
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: dict):
+    """Next-token CE. tokens [B, S+1]; optional loss_mask [B, S].
+
+    The sequence goes through the head in chunks of ``cfg.ce_chunk``
+    (one chunk when it does not divide S), summed in order as the
+    reference's scan sums them; under grad each chunk runs under
+    ``torch.utils.checkpoint``, so the backward pass recomputes its
+    logits and no [B, S, V] tensor exists.  The vlm's loss reads the text
+    positions only.  Returns (ce + aux, {"ce", "aux", "tokens"})."""
+    tokens = batch["tokens"].to(torch.int64)
+    labels = tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32,
+                       device=tokens.device) if mask is None
+            else mask.to(torch.float32))
+    h, _, aux = forward(cfg, params, {**batch, "tokens": tokens[:, :-1]})
+    if cfg.family == "vlm" and "patches" in batch:
+        h = h[:, batch["patches"].shape[1]:]             # text positions only
+    S = h.shape[1]
+    C = min(cfg.ce_chunk, S)
+    if not (S % C == 0 and S > C):
+        C = S
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, C):
+        args = (cfg, params, h[:, c:c + C], labels[:, c:c + C],
+                mask[:, c:c + C])
+        s, n = (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else _ce_chunk(*args))
+        tot, cnt = tot + s, cnt + n
+    loss = tot / torch.clamp_min(cnt, 1.0)
+    return loss + aux, {"ce": loss, "aux": aux, "tokens": cnt}
 
 
 # --------------------------------------------------------------------------
@@ -174,7 +223,7 @@ def prefill(cfg: LMConfig, params: dict, batch: dict, cache: dict):
     if cfg.family == "encdec":
         cache = _fill_cross_kv(cfg, params, batch["frames"], cache)
         batch = {k: v for k, v in batch.items() if k != "frames"}
-    h, cache = forward(cfg, params, batch, cache=cache)
+    h, cache, _ = forward(cfg, params, batch, cache=cache)
     logits = logits_for(cfg, params, h[:, -1:])[:, 0]
     return logits, cache
 
@@ -197,6 +246,7 @@ def _fill_cross_kv(cfg: LMConfig, params: dict, frames: torch.Tensor,
 def decode_step(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                 cache: dict):
     """One decode step. tokens [B] -> (logits [B, V], new cache)."""
-    h, cache = forward(cfg, params, {"tokens": tokens[:, None]}, cache=cache)
+    h, cache, _ = forward(cfg, params, {"tokens": tokens[:, None]},
+                          cache=cache)
     logits = logits_for(cfg, params, h)[:, 0]
     return logits, cache

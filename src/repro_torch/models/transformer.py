@@ -4,8 +4,10 @@ Layers are organized into *groups*: ``group_layout(cfg)`` returns the
 static tuple of block kinds that make up one group, and the full network
 is ``num_groups(cfg)`` repetitions, run as a Python loop over the
 leading group axis of the stacked parameters (the reference scans it
-with ``lax.scan``; rematerialisation is a training concern and has no
-counterpart here).  Examples:
+with ``lax.scan``).  Under grad with ``cfg.remat`` each group runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
+backward pass keeps only each group's input and recomputes the rest;
+serving (no tensor that requires grad) is untouched.  Examples:
 
   qwen2     -> ("attn:full",) x 28 groups
   mixtral   -> ("moe:swa",) x 32
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import moe as M
@@ -147,12 +150,12 @@ def _copy_into(cache: dict, new: dict) -> None:
 def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
                   freqs: torch.Tensor, cache: Optional[dict],
                   shared: Optional[dict] = None,
-                  enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  enc_out: Optional[torch.Tensor] = None):
     """One block; ``cache``, when given, is written in place (attention:
     {"k", "v", "pos"}; dec_attn also reads {"xk", "xv"}; rwkv: {"wkv",
     "shift_tm", "shift_cm"}; mamba: {"ssm", "conv"}).  Without a cache a
-    dec_attn block attends to ``enc_out``.  The MoE aux loss is a training
-    term: serving drops it."""
+    dec_attn block attends to ``enc_out``.  Returns (x, aux): the MoE
+    block's load-balancing loss (f32 scalar), None for every other kind."""
     if kind == "shared_attn":
         # falls through to the attention path with full-window KV
         p, kind = shared, "attn:full"
@@ -166,13 +169,14 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
                                   window=_kind_window(cfg, kind), cache=cache)
         x = x + a
         h = L.apply_norm(cfg, p["ln2"], x)
+        aux = None
         if kind.startswith("moe:"):
-            y, _ = M.moe_forward(cfg, p["moe"], h)
+            y, aux = M.moe_forward(cfg, p["moe"], h)
             if cfg.moe.dense_residual:
                 y = y + L.mlp_forward(cfg, p["mlp"], h)
         else:
             y = L.mlp_forward(cfg, p["mlp"], h)
-        return x + y
+        return x + y, aux
     if kind == "rwkv":
         st_tm = None if cache is None else \
             {"wkv": cache["wkv"], "shift": cache["shift_tm"]}
@@ -186,7 +190,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
             _copy_into(cache, {"wkv": new_tm["wkv"],
                                "shift_tm": new_tm["shift"],
                                "shift_cm": new_cm["shift"]})
-        return x + y
+        return x + y, None
     if kind == "mamba":
         st = None if cache is None else {"ssm": cache["ssm"],
                                          "conv": cache["conv"]}
@@ -194,7 +198,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
         y, new_st = SSM.mamba_forward(cfg, p["mamba"], h, st)
         if cache is not None:
             _copy_into(cache, new_st)
-        return x + y
+        return x + y, None
     if kind == "dec_attn":
         h = L.apply_norm(cfg, p["ln1"], x)
         a, _ = L.attn_forward(cfg, p["attn"], h, freqs, window=None,
@@ -208,7 +212,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
             xa = _cross_attn(cfg, p["xattn"], h, enc_out)
         x = x + xa
         h = L.apply_norm(cfg, p["ln2"], x)
-        return x + L.mlp_forward(cfg, p["mlp"], h)
+        return x + L.mlp_forward(cfg, p["mlp"], h), None
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -306,20 +310,38 @@ def stack_forward(cfg: LMConfig, stacked, x: torch.Tensor,
     per-slot caches with a leading group axis} (or None), written in
     place.  ``shared``: the hybrid family's shared attention block;
     ``enc_out``: the encoder output an uncached dec_attn block attends to.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux): ``aux`` sums the MoE blocks' aux losses
+    in group order (an f32 zero without MoE blocks)."""
     freqs = L.rope_freqs(cfg, x.device)
     pos = None if cache is None else cache["pos"]
     # the group count of the tree itself (a shared_attn slot has no leaf)
     G = next(leaves(stacked)).shape[0]
-    for g in range(G):
+
+    def group(x, aux, g):
         for i, kind in enumerate(layout):
             slot_cache = None
             if cache is not None:
                 slot_cache = _index(cache["slots"][i], g)
                 slot_cache["pos"] = pos
-            x = block_forward(cfg, kind, _index(stacked[i], g), x, freqs,
-                              slot_cache, shared=shared, enc_out=enc_out)
+            x, a = block_forward(cfg, kind, _index(stacked[i], g), x, freqs,
+                                 slot_cache, shared=shared, enc_out=enc_out)
+            if a is not None:       # 0 + a == a: the reference's sum
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    # only where a gradient is being recorded: serving (no grad, or no
+    # tensor that requires one) runs the groups as they are
+    remat = cfg.remat and cache is None and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in leaves(stacked)))
+    aux = None
+    for g in range(G):
+        if remat:
+            x, aux = checkpoint(group, x, aux, g, use_reentrant=False)
+        else:
+            x, aux = group(x, aux, g)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
     if cache is not None:
         new_cache = {"pos": pos + x.shape[1], "slots": cache["slots"]}
-    return x, new_cache
+    return x, new_cache, aux

@@ -1,0 +1,109 @@
+"""Training step: loss + grads + optimizer, with microbatch accumulation.
+
+``make_train_step`` builds ``train_step(state, batch) -> (state,
+metrics)``, the reference's (``repro.train.step``) structure run eagerly:
+
+  * grads by ``torch.autograd.grad`` of the chunked-CE loss over the
+    flattened parameter leaves,
+  * optional microbatch accumulation (a Python loop in float32 where the
+    reference scans; the sum divided by the count, the last
+    microbatch's metrics kept),
+  * optional error-feedback int8 gradient compression (compress.py),
+  * global-norm clipping,
+  * the learning rate of the step count before its increment, and the
+    optimizer update.
+
+The metrics stay tensors: the step reads nothing back to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..models import loss_fn
+from ..models.config import LMConfig
+from .compress import ef_compress_tree, ef_init
+from .optim import Optimizer, clip_by_global_norm
+from .tree import flatten, unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCfg:
+    optimizer: str = "adamw"
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    microbatches: int = 1          # gradient accumulation factor
+    compress_grads: bool = False   # error-feedback int8 (see compress.py)
+
+
+def make_train_step(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer,
+                    lr_fn: Callable):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    state = {"params", "opt", "step"}  (plus "ef" when compressing).
+    batch = {"tokens": [B, S+1], ...modality extras}.
+    """
+
+    def grads_of(params, batch):
+        flat, structure = flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(cfg, unflatten(structure, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, flat)]
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads, structure)
+
+    def accumulate(params, batch):
+        mb = tcfg.microbatches
+        if mb == 1:
+            loss, metrics, grads, structure = grads_of(params, batch)
+            return loss, metrics, unflatten(structure, grads)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in flatten(params)[0]]
+        tot = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+        for i in range(mb):
+            b = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                 for k, v in batch.items()}
+            loss, metrics, grads, structure = grads_of(params, b)
+            for a, g in zip(acc, grads):
+                a.add_(g)                       # float32 + g, in place
+            tot = tot + loss
+            del grads
+        return tot / mb, metrics, unflatten(structure,
+                                            [a.div_(mb) for a in acc])
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = accumulate(params, batch)
+        if tcfg.compress_grads:
+            grads, ef = ef_compress_tree(grads, state["ef"])
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = lr_fn(state["step"])
+        new_params, new_opt = opt.update(grads, state["opt"], params, lr)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if tcfg.compress_grads:
+            new_state["ef"] = ef
+        metrics = dict(metrics)
+        metrics.update({"loss": loss, "grad_norm": gnorm, "lr": lr})
+        return new_state, metrics
+
+    return train_step
+
+
+def init_state(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer, params):
+    """{"params", "opt", "step"} (+ "ef" when compressing); ``step`` an
+    int32 0-d tensor on the params' device."""
+    device = flatten(params)[0][0].device
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if tcfg.compress_grads:
+        state["ef"] = ef_init(params)
+    return state

@@ -219,7 +219,7 @@ def test_prefill_and_decode_match_the_reference(dtype, flash):
 def test_uncached_forward_matches_the_reference(dtype, flash):
     """The trunk without a cache: the decoder attends to ``encode(frames)``
     through the uncached cross-attention."""
-    h, cache = tlm.forward(_tcfg(dtype, flash),
+    h, cache, _ = tlm.forward(_tcfg(dtype, flash),
                            convert.lm_params_from_numpy(_reference_params()),
                            _tbatch(*_inputs()))
     assert cache is None
@@ -235,7 +235,7 @@ def test_cached_decode_agrees_with_the_uncached_forward(flash):
     cfg = _tcfg(flash=flash)
     params = convert.lm_params_from_numpy(_reference_params())
     tokens, frames = _inputs(12)
-    h, _ = tlm.forward(cfg, params, _tbatch(tokens, frames))
+    h, _, _ = tlm.forward(cfg, params, _tbatch(tokens, frames))
     full = tlm.logits_for(cfg, params, h)
     cache = tlm.init_cache(cfg, BATCH, 32, "cpu")
     lg, cache = tlm.prefill(cfg, params, _tbatch(tokens[:, :6], frames),

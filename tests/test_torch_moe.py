@@ -211,8 +211,8 @@ def test_arctic_block_adds_the_dense_residual_mlp(dtype):
         jcfg, "moe:full", p, x, JL.rope_freqs(jcfg), None))(
             jax.tree.map(jnp.asarray, jp), jnp.asarray(x, jd))
     tx = torch.from_numpy(x).to(td)
-    got = TT.block_forward(tcfg, "moe:full", tp, tx, TL.rope_freqs(tcfg),
-                           None)
+    got, _ = TT.block_forward(tcfg, "moe:full", tp, tx,
+                              TL.rope_freqs(tcfg), None)
     want = np.asarray(want, np.float32)
     bound = (1e-4 if dtype == "float32"
              else 2e-2 * float(np.abs(want).max()))

@@ -617,3 +617,92 @@ def test_serve_slab_gauges_equal_across_packages():
     assert p_srv.topology_events and p_srv.index.num_shards > 3
     assert {"serve.step", "serve.step.dispatch"} <= p_names
     assert r_names == p_names
+
+
+# ---------------------------------------------------------------------------
+# the occupancy-packed dispatch gauges (device.dispatch.*)
+# ---------------------------------------------------------------------------
+
+DISPATCH_GAUGES = tuple(f"device.dispatch.{k}" for k in (
+    "tier1_grids", "tier2_grids", "tier3_grids", "dense_slots",
+    "grids_swept", "grid_cap"))
+
+
+def _dispatch_gauges(pobs) -> dict:
+    snap = pobs.registry().snapshot()
+    return {k: snap[k]["value"] for k in DISPATCH_GAUGES}
+
+
+def _dispatch_case(case: str):
+    """Points and the reference's caps of ``tests/test_packed_dispatch.py``'s
+    gauge cases: packed with grid_cap far above the live grids, dense,
+    and the ``cluster`` entry point's packed default."""
+    import dataclasses
+
+    from repro.engine.adaptive import estimate_caps
+
+    seed, n, eps, min_pts = {"packed": (17, 400, 5.0, 4),
+                             "dense": (19, 200, 5.0, 4),
+                             "cluster": (43, 500, 5.0, 5)}[case]
+    rng = np.random.default_rng(seed)
+    hi = 80.0 if case == "cluster" else 100.0
+    pts = np.asarray(rng.uniform(0, hi, size=(n, 2)), np.float32)
+    caps = estimate_caps(pts, eps, min_pts)
+    if case == "packed":
+        caps = dataclasses.replace(caps, grid_cap=4096, grid_block=64,
+                                   pair_cap=65536)
+    if case == "dense":
+        caps = dataclasses.replace(caps, packed=False)
+    return pts, eps, min_pts, caps
+
+
+@pytest.mark.parametrize("case", ["packed", "dense", "cluster"])
+def test_dispatch_gauges_equal_the_reference(case):
+    """After an adaptive fit the port sets the reference's six
+    ``device.dispatch.*`` gauges to the reference's values on the same
+    points and caps (``test_packed_dispatch.py``'s assertions hold on
+    the port's), from the host ints the fit already holds: no host read
+    beyond the fit's own."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from repro import obs as jobs
+    from repro.engine import cluster as jcluster
+    from repro.engine.adaptive import adaptive_device_dbscan as jfit
+    from repro_torch import convert
+    from repro_torch.core import sync
+    from repro_torch.core.device_dbscan import device_dbscan
+    from repro_torch.engine import cluster as tcluster
+    from repro_torch.engine.adaptive import adaptive_device_dbscan as tfit
+
+    pts, eps, min_pts, caps = _dispatch_case(case)
+    tcaps = convert.caps_from_dict(dataclasses.asdict(caps))
+    if case == "cluster":
+        jcluster(pts, eps, min_pts, engine="device", caps=caps)
+        want = _dispatch_gauges(jobs)
+        tcluster(pts, eps, min_pts, engine="device", caps=tcaps,
+                 device="cpu")
+    else:
+        jfit(jnp.asarray(pts), eps, min_pts, caps)
+        want = _dispatch_gauges(jobs)
+        sync.READS["count"] = 0
+        res, attempts = tfit(pts, eps, min_pts, tcaps, device="cpu")
+        reads = sync.READS["count"]
+        assert res.tier_counts == tuple(res.dispatch_tiers.tolist())
+        # the fit's reads: the pipeline's own plus one overflow report
+        assert len(attempts) == 1
+        sync.READS["count"] = 0
+        device_dbscan(torch.as_tensor(pts), eps, min_pts, tcaps)
+        assert reads == sync.READS["count"] + 1
+    got = _dispatch_gauges(obs)
+    assert got == want
+    if case == "packed":
+        assert got["device.dispatch.grid_cap"] == 4096.0
+        assert got["device.dispatch.dense_slots"] == 0.0
+        assert 0 < got["device.dispatch.grids_swept"] <= 400
+        assert got["device.dispatch.grids_swept"] < 4096 / 4
+    elif case == "dense":
+        assert got["device.dispatch.dense_slots"] == caps.grid_cap
+        assert got["device.dispatch.grids_swept"] == caps.grid_cap
+    else:
+        assert got["device.dispatch.dense_slots"] == 0.0

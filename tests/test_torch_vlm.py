@@ -185,7 +185,7 @@ def test_uncached_forward_matches_the_reference(dtype, flash):
     """The trunk without a cache over patches + tokens: one hidden row per
     patch ahead of the prompt's."""
     cfg = _tcfg(dtype, flash)
-    h, cache = tlm.forward(cfg,
+    h, cache, _ = tlm.forward(cfg,
                            convert.lm_params_from_numpy(_reference_params()),
                            _tbatch(*_inputs()))
     assert cache is None
@@ -202,7 +202,7 @@ def test_cached_decode_agrees_with_the_uncached_forward(flash):
     cfg = _tcfg(flash=flash)
     params = convert.lm_params_from_numpy(_reference_params())
     tokens, patches = _inputs(12)
-    h, _ = tlm.forward(cfg, params, _tbatch(tokens, patches))
+    h, _, _ = tlm.forward(cfg, params, _tbatch(tokens, patches))
     full = tlm.logits_for(cfg, params, h)[:, cfg.num_patches:]
     cache = tlm.init_cache(cfg, BATCH, 32, "cpu")
     lg, cache = tlm.prefill(cfg, params, _tbatch(tokens[:, :6], patches),
