@@ -205,12 +205,32 @@ result line) as soon as a phase fails:
            seeded frames; internvl2 behind 256 seeded patches): step
            seconds, peak memory, loss, aux and grad norm.  Every cut is
            in ``reduced``; arctic-480b trains on the CPU tests only
+  cost     the accountant (``launch/costs.py``) on the programs the card
+           already ran, each line beside the card's name and power
+           limit: (a) qwen2-1.5b's warm prefill of 4 x 2,048 (flash on),
+           a decode step of the CLI traffic (4 x 128 positions) and
+           phase train's step (8 x 4,096 in 2 microbatches), each counted
+           over a real run and over ``build_cell``'s fake run of the same
+           program: FLOPs by class and bytes equal, the kernels' counted
+           calls equal to their launches; (b) each timed apart without
+           the accountant (CUDA events, median), its roofline bound
+           (``launch/roofline.py``) a share in (0, 1.05] of the time; (c)
+           one warm fit at n under the accountant (labels unchanged): the
+           distance kernels' counted FLOPs equal 3·d per (row, candidate)
+           slot summed over their launches, the fit's bound and share of
+           the warm wall; (d) ``dryrun.run_cell`` of qwen2-1.5b x
+           train_4k / prefill_32k / decode_32k / long_500k on the card
+           (fake tensors, flash on outside training; ``fits_card``:
+           arguments + temp within its memory); (e) the dot FLOPs beside
+           2 (8 for the train step) x params x tokens and the weight
+           products alone, which they must reach
 
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
 server phase, the sharded phase, the lm phase, the families phase and
-the train phase (which must launch none).
+the train phase (which must launch none); phase cost drives no new path
+(its runs count in ``launches_script`` only).
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -2154,14 +2174,6 @@ FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2.0 ** -7, 1e-4)}
 FLASH_MEAN_REL = 1e-3
 
 
-def live_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """Unmasked (query, key) pairs of one head, queries right-aligned."""
-    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
-    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def sdpa_call(q, k, v, causal, window, softcap):
     """One ``F.scaled_dot_product_attention`` call computing the same
     function (timed as a yardstick only; the port never calls it), or
@@ -2280,7 +2292,7 @@ def flash_phase(dev, seed):
         del got, want, diff, mag
         esize = q.element_size()
         nbytes = esize * 2.0 * B * (H * Sq + Hkv * Sk) * D
-        nops = 4.0 * D * B * H * live_pairs(Sq, Sk, causal, window)
+        nops = 4.0 * D * B * H * ops.live_pairs(Sq, Sk, causal, window)
         peak = PEAK_BF16_OPS_S if dt == "bfloat16" else PEAK_F32_OPS_S
         tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak * 1e3
         lib = sdpa_call(q, k, v, causal, window, cap)
@@ -3383,6 +3395,299 @@ def train_phase(dev, seed, t_script):
 
 
 # --------------------------------------------------------------------------
+# cost: the accountant's counts held against the card's time
+# --------------------------------------------------------------------------
+
+COST_ARCH = "qwen2-1.5b"
+# (a) the programs phases lm and train run: the warm prefill of (b), a
+# decode step of the CLI traffic (4 slots, 128 positions), the train step
+COST_PREFILL = (4, 2048)
+COST_DECODE = (4, 128)
+COST_DECODE_AT = 16                   # the cache holds a 16-token prompt
+COST_REPS = 5                         # timed prefills / decode steps
+COST_TRAIN_REPS = 2                   # timed train steps (7.7 s each)
+COST_FIT_REPS = 3                     # timed warm fits
+COST_SHARE_MAX = 1.05                 # a count above the card's peak is wrong
+COST_DRYRUN = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def _events_ms(fn, reps):
+    """Milliseconds of each of ``reps`` synchronised calls of ``fn()`` by
+    CUDA events."""
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _cost_share(tag, count, ms, smi):
+    """The roofline bound of ``count`` and its share of ``ms`` measured;
+    a share above ``COST_SHARE_MAX`` fails."""
+    from repro_torch.launch.roofline import roofline_terms
+    r = roofline_terms(count["flops_by_class"], count["bytes"],
+                       count["coll_bytes"])
+    bound_ms = 1e3 * r["bound"]
+    share = bound_ms / ms
+    require(0 < share <= COST_SHARE_MAX,
+            f"cost/{tag}: the bound {bound_ms} ms is {share} of the "
+            f"{ms} ms measured ({smi})")
+    return dict(bound_ms=bound_ms, measured_ms=ms, share=share,
+                dominant=r["dominant"], t_compute_ms=1e3 * r["t_compute"],
+                t_memory_ms=1e3 * r["t_memory"], card=smi)
+
+
+def _count_line(c, top=8):
+    """A count's totals and its ``top`` operators by bytes."""
+    ranked = sorted(c["ops"].items(), key=lambda kv: -kv[1]["bytes"])
+    return dict({k: c[k] for k in ("flops", "flops_by_class", "dot_flops",
+                                   "kernel_flops", "bytes", "coll_bytes",
+                                   "torch_flop_counter", "peak_live_bytes")},
+                top_ops=[dict(op=k, **v) for k, v in ranked[:top]])
+
+
+def _real_vs_fake(tag, real, fake):
+    """(a): the accountant over the real run and over ``build_cell``'s
+    fake run of the same program must agree exactly."""
+    for key in ("flops", "flops_by_class", "bytes"):
+        require(real[key] == fake[key],
+                f"cost/{tag}: {key} of the real run {real[key]} != "
+                f"{fake[key]} of build_cell's fake run")
+
+
+def _weight_products(cfg):
+    """Weight-product parameters one token meets in the trunk (GQA
+    projections and the GLU), and in the head (d x V)."""
+    d, H, KV, Dh, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    layer = d * H * Dh + 2 * d * KV * Dh + H * Dh * d + 3 * d * ff
+    return cfg.num_layers * layer, d * cfg.vocab_size
+
+
+def _cost_program(tag, fn, cell, reps, smi):
+    """(a) and (b) for one program: ``fn()`` once under the accountant,
+    the same program as ``build_cell``'s fake ``cell`` (fn, args), then
+    ``reps`` timed runs without the accountant (median)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs, dryrun
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    _, real = costs.measure(fn)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for k, n in launched.items():
+        require(real["ops"].get(f"repro_torch.{k}", {}).get("calls", 0) == n,
+                f"cost/{tag}: {n} {k} launches, the accountant saw "
+                f"{real['ops'].get(f'repro_torch.{k}')}")
+    t0 = time.perf_counter()
+    _, fake, memory = dryrun.count_cell(*cell)
+    fake_s = time.perf_counter() - t0
+    _real_vs_fake(tag, real, fake)
+    ms = _events_ms(fn, reps)
+    med = float(np.median(ms))
+    return real, dict(count=_count_line(real), launches=launched,
+                      counted_s=counted_s, fake_s=fake_s,
+                      fake_memory=memory, ms=ms, ms_median=med,
+                      **_cost_share(tag, real, med, smi))
+
+
+def _cost_lm(dev, seed, smi):
+    """(a) / (b) for qwen2's warm prefill and a decode step (flash on, as
+    phase lm serves), and the counts of (e)."""
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import (count_params, decode_step, init_cache,
+                                    init_params, prefill)
+    flash = {"use_flash_kernel": True}
+    cfg = get_config(COST_ARCH).with_overrides(**flash)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 95_000), dev)
+    gen = np.random.default_rng(seed + 95_000)
+    B, S = COST_PREFILL
+    batch = {"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, size=(B, S))).to(dev, torch.int32)}
+    cache = init_cache(cfg, B, S, dev)
+    real_p, prefill_line = _cost_program(
+        "prefill", lambda: prefill(cfg, params, batch, cache),
+        build_cell(COST_ARCH, ShapeCfg("prefill_4x2048", "prefill", S, B),
+                   device=dev, overrides=flash)[:2], COST_REPS, smi)
+    require(prefill_line["launches"]["flash_attention"] == cfg.num_layers,
+            f"cost/prefill: {prefill_line['launches']} launches")
+    del cache
+    B, S = COST_DECODE
+    cache = init_cache(cfg, B, S, dev)
+    _, cache = prefill(cfg, params, {"tokens": batch["tokens"][
+        :B, :COST_DECODE_AT]}, cache)
+    tok = batch["tokens"][:B, COST_DECODE_AT]
+    real_d, decode_line = _cost_program(
+        "decode", lambda: decode_step(cfg, params, tok, cache),
+        build_cell(COST_ARCH, ShapeCfg("decode_cli", "decode", S, B),
+                   device=dev, overrides=flash)[:2], COST_REPS, smi)
+    del params, cache
+    torch.cuda.empty_cache()
+    P = count_params(cfg)
+    trunk, head = _weight_products(cfg)
+    Bp, Sp = COST_PREFILL
+    out = dict(prefill=prefill_line, decode=decode_line)
+    out["dots"] = {
+        "prefill": dict(dot_flops=real_p["dot_flops"],
+                        two_params_tokens=2 * P * Bp * Sp,
+                        analytic_no_attention=2 * Bp * Sp * trunk
+                        + 2 * Bp * head),
+        "decode": dict(dot_flops=real_d["dot_flops"],
+                       two_params_tokens=2 * P * B,
+                       analytic_no_attention=2 * B * (trunk + head))}
+    return out
+
+
+def _cost_train(dev, seed, smi):
+    """(a) / (b) for phase train's qwen2 step: 8 x 4,096 tokens in 2
+    microbatches, remat, AdamW, the plain attention."""
+    from repro_torch.configs import ShapeCfg, get_shape
+    from repro_torch.launch.specs import (build_cell, model_cfg_for,
+                                          train_batch, train_cfg_for)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train import (get_optimizer, init_state,
+                                   make_train_step, warmup_cosine)
+    cfg = model_cfg_for(TRAIN_ARCH)
+    tcfg = dataclasses.replace(train_cfg_for(TRAIN_ARCH),
+                               microbatches=TRAIN_MICROBATCHES)
+    opt = get_optimizer(tcfg.optimizer)
+    step = make_train_step(cfg, tcfg, opt, warmup_cosine(
+        tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps))
+    S = get_shape("train_4k").seq_len
+    holder = {"state": init_state(cfg, tcfg, opt, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 96_000), dev))}
+    gen = np.random.default_rng(seed + 96_000)
+    batch = train_batch(cfg, gen.integers(0, cfg.vocab_size, size=(
+        TRAIN_BATCH, S + 1)), dev)
+
+    def one():
+        holder["state"], _ = step(holder["state"], batch)
+
+    real, line = _cost_program(
+        "train", one,
+        build_cell(TRAIN_ARCH, ShapeCfg("train_8x4096", "train", S,
+                                        TRAIN_BATCH), device=dev,
+                   microbatches=TRAIN_MICROBATCHES)[:2],
+        COST_TRAIN_REPS, smi)
+    del holder, batch
+    torch.cuda.empty_cache()
+    trunk, head = _weight_products(cfg)
+    T = TRAIN_BATCH * S
+    line["dots"] = dict(dot_flops=real["dot_flops"],
+                        eight_params_tokens=8 * count_params(cfg) * T,
+                        analytic_no_attention=8 * T * (trunk + head))
+    return line
+
+
+def _cost_fit(fit, smi):
+    """(c): one warm fit under the accountant; the distance kernels'
+    formula FLOPs equal the sum over launches of 3·d per (row,
+    candidate) slot of each launch's shapes."""
+    from repro_torch.engine import cluster
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs
+    pts, eps, caps, labels = fit
+    shapes = {"eps_count_batch": [], "row_min_batch": []}
+    real_count, real_min = ops.eps_count_batch, ops.row_min_batch
+
+    def keep_count(a, b, eps_, valid_b=None, valid_a=None, *, stop_at=None):
+        shapes["eps_count_batch"].append((*a.shape, b.shape[1]))
+        return real_count(a, b, eps_, valid_b, valid_a, stop_at=stop_at)
+
+    def keep_min(a, b, valid_b=None):
+        shapes["row_min_batch"].append((*a.shape, b.shape[1]))
+        return real_min(a, b, valid_b)
+
+    before = dict(ops.LAUNCHES)
+    ops.eps_count_batch, ops.row_min_batch = keep_count, keep_min
+    try:
+        res, c = costs.measure(cluster, pts, eps, MIN_PTS,
+                               engine="device-kernels", caps=caps)
+    finally:
+        ops.eps_count_batch, ops.row_min_batch = real_count, real_min
+    require(np.array_equal(res.labels, labels),
+            "cost/fit: the counted fit gave other labels")
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    kernels, k_flops, k_bytes = {}, 0.0, 0.0
+    for name, calls in shapes.items():
+        live = [(B, M, d, N) for B, M, d, N in calls if B * M]
+        formula = sum(3.0 * d * B * M * N for B, M, d, N in live)
+        rec = c["ops"].get(f"repro_torch.{name}",
+                           {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        require(rec["calls"] == launched[name] == len(live) > 0,
+                f"cost/fit: {name}: {rec['calls']} counted, "
+                f"{launched[name]} launched, {len(live)} calls with rows")
+        require(rec["flops"] == formula,
+                f"cost/fit: {name}: {rec['flops']} counted FLOPs, "
+                f"{formula} by the formula over its launches")
+        kernels[name] = dict(launches=len(live), formula_flops=formula,
+                             counted_flops=rec["flops"],
+                             bytes=rec["bytes"])
+        k_flops += formula
+        k_bytes += rec["bytes"]
+    wall = []
+    for _ in range(COST_FIT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cluster(pts, eps, MIN_PTS, engine="device-kernels", caps=caps)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+    med = float(np.median(wall))
+    kernel_bound_ms = _bound(k_bytes, k_flops)[0]
+    return dict(n=len(pts), count=_count_line(c), kernels=kernels,
+                launches=launched, warm_ms=wall, warm_ms_median=med,
+                kernel_bound_ms=kernel_bound_ms,
+                kernel_share=kernel_bound_ms / med,
+                **_cost_share("fit", c, med, smi))
+
+
+def cost_phase(dev, seed, fit, smi, t_script):
+    """(a) - (e); emits one line for each part; returns the launches of
+    the whole phase (the counted and timed runs; none is a new path)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import run_cell
+    t_phase = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    lm = _cost_lm(dev, seed, smi)
+    for part in ("prefill", "decode"):
+        emit("cost", part=part, arch=COST_ARCH, **lm[part],
+             phase_s=time.perf_counter() - t_phase)
+    train = _cost_train(dev, seed, smi)
+    emit("cost", part="train", arch=TRAIN_ARCH, **train,
+         phase_s=time.perf_counter() - t_phase)
+    emit("cost", part="fit", **_cost_fit(fit, smi),
+         phase_s=time.perf_counter() - t_phase)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for shape in COST_DRYRUN:
+        rec = run_cell(COST_ARCH, shape, device=dev, overrides=(
+            None if shape.startswith("train") else {"use_flash_kernel": True}))
+        mem = rec.get("memory")
+        emit("cost", part="dryrun", card=smi, **rec,
+             fits_card=None if mem is None else
+             mem["argument_size"] + mem["temp_size"] <= total,
+             phase_s=time.perf_counter() - t_phase)
+    dots = dict(lm["dots"], train=train["dots"])
+    for kind, d in dots.items():
+        require(d["dot_flops"] >= d["analytic_no_attention"],
+                f"cost/{kind}: {d['dot_flops']} dot FLOPs, below the "
+                f"{d['analytic_no_attention']} of the weight products alone")
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    emit("cost", part="summary", dots=dots, launches=launches, card=smi,
+         phase_s=time.perf_counter() - t_phase,
+         script_s=time.perf_counter() - t_script)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -3606,6 +3911,8 @@ def main() -> int:
                      "clock, not a measurement",
          script_s=time.perf_counter() - t_script)
     after_band = dict(ops.LAUNCHES)
+    # phase cost fits the same points again, warm (host arrays only)
+    cost_fit = (pts, eps, caps, res.labels)
     del index, predict_call, band_tiers, pts, res, warm, staged, plain
     torch.cuda.empty_cache()
 
@@ -3630,6 +3937,11 @@ def main() -> int:
 
     # ---- train ------------------------------------------------------------
     train_launches = train_phase(dev, args.seed, t_script)
+    torch.cuda.empty_cache()
+
+    # ---- cost -------------------------------------------------------------
+    cost_launches = cost_phase(dev, args.seed, cost_fit, smi, t_script)
+    del cost_fit
 
     # launches on the seven driven paths (the cold fit, the serve phase,
     # the server phase, the sharded phase's cold distributed fit plus
@@ -3637,7 +3949,8 @@ def main() -> int:
     # phase), each counted on its own run; the distance kernels have no
     # place on the LM paths and flash none on the other four; the train
     # path launches none (its phase requires it); launches_script also
-    # counts the comparison launches
+    # counts the comparison launches and phase cost's counted and timed
+    # runs
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
                       "server": server_launches[name],
                       "sharded": sharded_launches[name],
@@ -3663,7 +3976,8 @@ def main() -> int:
                                      + after_band[r["name"]]
                                      + lm_launches[r["name"]]
                                      + families_launches[r["name"]]
-                                     + train_launches[r["name"]]),
+                                     + train_launches[r["name"]]
+                                     + cost_launches[r["name"]]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
@@ -3682,7 +3996,8 @@ def main() -> int:
                          + sharded_spent["flash_attention"]
                          + flash_compare + lm_launches["flash_attention"]
                          + families_launches["flash_attention"]
-                         + train_launches["flash_attention"]),
+                         + train_launches["flash_attention"]
+                         + cost_launches["flash_attention"]),
         shape=fr["shape"], dtype=fr["dtype"], max_abs_err=fr["max_abs_err"],
         ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
         bound_by=fr["bound_by"], library_ms=fr["library_ms"]))

@@ -62,6 +62,16 @@ minimum makes ``min2 == min``; a row with one valid candidate reports
 
 ``LAUNCHES`` counts kernel launches per wrapper (nothing else
 increments it), so a run can show which kernels its path went through.
+
+Each launch is an operator of the ``repro_torch`` library
+(``torch.ops.repro_torch.<wrapper name>``): its CUDA implementation is
+the launch, its fake implementation gives the outputs' shapes and dtypes
+only.  So a dispatch mode (the accountant of ``launch/costs.py``) sees
+every launch, and fake tensors (``FakeTensorMode``, on either device
+type) run through the wrappers without a card and without counting a
+launch.  ``KERNEL_WORK`` holds each operator's operations, from shapes
+alone.  The checks that raise stay in the wrappers, ahead of the
+operator.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .. import obs
 from . import build, ref
@@ -391,6 +402,13 @@ def _check(name: str, a, b, valid_b, valid_a, batched: bool):
     return a, b, valid_b.view(torch.uint8), va
 
 
+def _empty(shape, device, *dtypes):
+    """Outputs of a launch that has no row to compute (no launch)."""
+    outs = tuple(torch.empty(tuple(shape), dtype=dt, device=device)
+                 for dt in dtypes)
+    return outs[0] if len(outs) == 1 else outs
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
@@ -401,18 +419,16 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_eps_count(name, a, b, vb, va, eps, stop_at, slots, rows_per_slot,
-                      rows_total, C, b_stride, vb_stride, out_shape):
+def _launch_eps_count(name, a, b, vb, va, eps2, stop_at, slots,
+                      rows_per_slot, rows_total, C, b_stride, vb_stride,
+                      out_shape):
     out = torch.empty(out_shape, dtype=torch.int32, device=a.device)
-    if rows_total == 0:
-        return out
     with torch.cuda.device(a.device):
         err = _lib().grit_eps_count_batch(
             a.data_ptr(), b.data_ptr(), vb.data_ptr(),
             None if va is None else va.data_ptr(), out.data_ptr(),
             slots, rows_per_slot, rows_total, C, a.shape[-1], b_stride,
-            vb_stride, _eps2(eps), 0 if stop_at is None else int(stop_at),
-            _stream(a.device))
+            vb_stride, eps2, stop_at, _stream(a.device))
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
@@ -422,8 +438,6 @@ def _launch_row_min(name, a, b, vb, slots, rows_per_slot, rows_total, C,
                     b_stride, vb_stride, out_shape):
     mins = torch.empty(out_shape, dtype=torch.float32, device=a.device)
     args = torch.empty(out_shape, dtype=torch.int32, device=a.device)
-    if rows_total == 0:
-        return mins, args
     with torch.cuda.device(a.device):
         err = _lib().grit_row_min_batch(
             a.data_ptr(), b.data_ptr(), vb.data_ptr(), mins.data_ptr(),
@@ -432,6 +446,225 @@ def _launch_row_min(name, a, b, vb, slots, rows_per_slot, rows_total, C,
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return mins, args
+
+
+# --------------------------------------------------------------------------
+# the launches as operators
+# --------------------------------------------------------------------------
+# Each launch is an operator of the ``repro_torch`` library whose CUDA
+# implementation is the ctypes launch above, so that a dispatch mode (the
+# accountant of ``launch/costs.py``) sees it, and whose fake
+# implementation gives only its outputs' shapes and dtypes, so that fake
+# and meta tensors run through it without a card (and count no launch).
+# The wrappers below check their operands and take the early exits
+# before calling an operator: each call of one is one launch.  The
+# operators have no CPU implementation: the wrappers take the plain
+# versions for CPU tensors, and a CUDA tensor launches or raises.
+
+# ``torch.library.custom_op`` would wrap each implementation in
+# ``torch._disable_dynamo``, whose first call imports dynamo: seconds
+# added to the first launch of a process (a cold fit) and tens of
+# microseconds to every launch.  The operators are registered on a
+# ``Library`` directly.
+_OPS = torch.library.Library("repro_torch", "DEF")
+
+
+def _kernel_op(name: str, schema: str):
+    """Define the operator ``repro_torch::<name><schema>``, and register
+    the decorated launch as its CUDA implementation."""
+    _OPS.define(name + schema)
+
+    def register(launch):
+        _OPS.impl(name, launch, "CUDA")
+        return launch
+    return register
+
+
+def _fake(name: str):
+    """Register the decorated function as the fake (and meta)
+    implementation of ``repro_torch::<name>``."""
+    return torch.library.register_fake(f"repro_torch::{name}", lib=_OPS)
+
+
+@_kernel_op("eps_count_batch", "(Tensor a, Tensor b, Tensor vb, Tensor? va, "
+            "float eps2, int stop_at) -> Tensor")
+def _eps_count_batch_op(a, b, vb, va, eps2, stop_at):
+    B, M, d = a.shape
+    N = b.shape[1]
+    return _launch_eps_count("eps_count_batch", a, b, vb, va, eps2, stop_at,
+                             B, M, B * M, N, N * d, N, (B, M))
+
+
+@_fake("eps_count_batch")
+def _(a, b, vb, va, eps2, stop_at):
+    return a.new_empty(a.shape[:2], dtype=torch.int32)
+
+
+@_kernel_op("eps_count", "(Tensor a, Tensor b, Tensor vb, float eps2) "
+            "-> Tensor")
+def _eps_count_op(a, b, vb, eps2):
+    M, N = a.shape[0], b.shape[0]
+    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
+    return _launch_eps_count("eps_count", a, b, vb, None, eps2, 0, slots,
+                             ROWS_PER_SLOT, M, N, 0, 0, (M,))
+
+
+@_fake("eps_count")
+def _(a, b, vb, eps2):
+    return a.new_empty(a.shape[:1], dtype=torch.int32)
+
+
+@_kernel_op("row_min_batch",
+            "(Tensor a, Tensor b, Tensor vb) -> (Tensor, Tensor)")
+def _row_min_batch_op(a, b, vb):
+    B, M, d = a.shape
+    N = b.shape[1]
+    return _launch_row_min("row_min_batch", a, b, vb, B, M, B * M, N, N * d,
+                           N, (B, M))
+
+
+@_fake("row_min_batch")
+def _(a, b, vb):
+    return (a.new_empty(a.shape[:2], dtype=torch.float32),
+            a.new_empty(a.shape[:2], dtype=torch.int32))
+
+
+@_kernel_op("row_min",
+            "(Tensor a, Tensor b, Tensor vb) -> (Tensor, Tensor)")
+def _row_min_op(a, b, vb):
+    M, N = a.shape[0], b.shape[0]
+    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
+    return _launch_row_min("row_min", a, b, vb, slots, ROWS_PER_SLOT, M, N,
+                           0, 0, (M,))
+
+
+@_fake("row_min")
+def _(a, b, vb):
+    return (a.new_empty(a.shape[:1], dtype=torch.float32),
+            a.new_empty(a.shape[:1], dtype=torch.int32))
+
+
+@_kernel_op("eps_count_band_batch", "(Tensor a, Tensor b, Tensor vb, "
+            "Tensor? stop_row, float lo2, float hi2) -> (Tensor, Tensor)")
+def _band_op(a, b, vb, stop_row, lo2, hi2):
+    name = "eps_count_band_batch"
+    B, M, d = a.shape
+    N = b.shape[1]
+    lo = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    hi = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib().grit_eps_count_band_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(),
+            None if stop_row is None else stop_row.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), B, M, N, d, lo2, hi2,
+            _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return lo, hi
+
+
+@_fake("eps_count_band_batch")
+def _(a, b, vb, stop_row, lo2, hi2):
+    return (a.new_empty(a.shape[:2], dtype=torch.int32),
+            a.new_empty(a.shape[:2], dtype=torch.int32))
+
+
+@_kernel_op("row_min2_batch", "(Tensor a, Tensor b, Tensor vb) -> "
+            "(Tensor, Tensor, Tensor)")
+def _row_min2_op(a, b, vb):
+    name = "row_min2_batch"
+    B, M, d = a.shape
+    N = b.shape[1]
+    mins = torch.empty((B, M), dtype=torch.float32, device=a.device)
+    mins2 = torch.empty((B, M), dtype=torch.float32, device=a.device)
+    args = torch.empty((B, M), dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _lib().grit_row_min2_batch(
+            a.data_ptr(), b.data_ptr(), vb.data_ptr(), mins.data_ptr(),
+            mins2.data_ptr(), args.data_ptr(), B, M, N, d,
+            _stream(a.device))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return mins, mins2, args
+
+
+@_fake("row_min2_batch")
+def _(a, b, vb):
+    return (a.new_empty(a.shape[:2], dtype=torch.float32),
+            a.new_empty(a.shape[:2], dtype=torch.float32),
+            a.new_empty(a.shape[:2], dtype=torch.int32))
+
+
+@_kernel_op("flash_attention", "(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, float softcap, float scale) -> Tensor")
+def _flash_op(q, k, v, causal, window, softcap, scale):
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _flash_lib().grit_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            k.shape[1], Sq, Sk, D, Sk, Sk - Sq, scale, int(causal), window,
+            softcap, _FLASH_DTYPES[q.dtype], _stream(q.device))
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+@_fake("flash_attention")
+def _(q, k, v, causal, window, softcap, scale):
+    return torch.empty_like(q)
+
+
+# --------------------------------------------------------------------------
+# the work of one launch, from shapes alone
+# --------------------------------------------------------------------------
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
+    """Unmasked (query, key) pairs of one attention head, queries
+    right-aligned (query i at key position i + Sk - Sq)."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(Sk - 1, qpos) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _distance_work(a, b, *_):
+    """3·d float32 operations per (row, candidate) slot of the launch:
+    the padded work (the validity masks are not read, so a fake launch
+    and a real one count alike)."""
+    return 3.0 * a.numel() * b.shape[-2], "f32"
+
+
+def _flash_work(q, k, v, causal, window, softcap, scale):
+    """4·D operations per unmasked (query, key) pair per head (QK^T and
+    PV), at the bf16 tensor-core rate for bf16 inputs and the float32
+    one otherwise."""
+    B, H, Sq, D = q.shape
+    pairs = live_pairs(Sq, k.shape[2], causal, window or None)
+    return (4.0 * D * B * H * pairs,
+            "bf16" if q.dtype == torch.bfloat16 else "f32")
+
+
+# (operations, class) of one launch, by operator name: what the
+# accountant of ``launch/costs.py`` counts for the kernels
+KERNEL_WORK = {
+    "repro_torch::eps_count_batch": _distance_work,
+    "repro_torch::eps_count": _distance_work,
+    "repro_torch::row_min_batch": _distance_work,
+    "repro_torch::row_min": _distance_work,
+    "repro_torch::eps_count_band_batch": _distance_work,
+    "repro_torch::row_min2_batch": _distance_work,
+    "repro_torch::flash_attention": _flash_work,
+}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte alignment of ``t``'s data: its address, or for a fake /
+    meta tensor (which has none) its offset into its storage."""
+    if t.device.type == "meta" or is_fake(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
 
 
 # --------------------------------------------------------------------------
@@ -451,12 +684,12 @@ def eps_count_batch(a: torch.Tensor, b: torch.Tensor, eps,
     if not a.is_cuda:
         return eps_count_batch_plain(a.to(torch.float32),
                                      b.to(torch.float32), eps, valid_b)
-    name = "eps_count_batch"
-    a, b, vb, va = _check(name, a, b, valid_b, valid_a, batched=True)
-    B, M, d = a.shape
-    N = b.shape[1]
-    return _launch_eps_count(name, a, b, vb, va, eps, stop_at, B, M, B * M,
-                             N, N * d, N, (B, M))
+    a, b, vb, va = _check("eps_count_batch", a, b, valid_b, valid_a,
+                          batched=True)
+    if a.shape[0] * a.shape[1] == 0:
+        return _empty(a.shape[:2], a.device, torch.int32)
+    return torch.ops.repro_torch.eps_count_batch(
+        a, b, vb, va, _eps2(eps), 0 if stop_at is None else int(stop_at))
 
 
 def row_min_batch(a: torch.Tensor, b: torch.Tensor,
@@ -470,11 +703,10 @@ def row_min_batch(a: torch.Tensor, b: torch.Tensor,
     if not a.is_cuda:
         return row_min_batch_plain(a.to(torch.float32), b.to(torch.float32),
                                    valid_b)
-    name = "row_min_batch"
-    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=True)
-    B, M, d = a.shape
-    N = b.shape[1]
-    return _launch_row_min(name, a, b, vb, B, M, B * M, N, N * d, N, (B, M))
+    a, b, vb, _ = _check("row_min_batch", a, b, valid_b, None, batched=True)
+    if a.shape[0] * a.shape[1] == 0:
+        return _empty(a.shape[:2], a.device, torch.float32, torch.int32)
+    return torch.ops.repro_torch.row_min_batch(a, b, vb)
 
 
 def eps_count_band_batch(a: torch.Tensor, b: torch.Tensor, eps_lo, eps_hi,
@@ -504,19 +736,10 @@ def eps_count_band_batch(a: torch.Tensor, b: torch.Tensor, eps_lo, eps_hi,
                              f"{(B, M)} tensor on {a.device}, got "
                              f"{stop_row.dtype} {tuple(stop_row.shape)} on "
                              f"{stop_row.device}")
-    lo = torch.empty((B, M), dtype=torch.int32, device=a.device)
-    hi = torch.empty((B, M), dtype=torch.int32, device=a.device)
     if B * M == 0:
-        return lo, hi
-    with torch.cuda.device(a.device):
-        err = _lib().grit_eps_count_band_batch(
-            a.data_ptr(), b.data_ptr(), vb.data_ptr(),
-            None if stop_row is None else stop_row.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), B, M, N, d, _eps2(eps_lo),
-            _eps2(eps_hi), _stream(a.device))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return lo, hi
+        return _empty((B, M), a.device, torch.int32, torch.int32)
+    return torch.ops.repro_torch.eps_count_band_batch(
+        a, b, vb, stop_row, _eps2(eps_lo), _eps2(eps_hi))
 
 
 def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
@@ -530,23 +753,11 @@ def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
     if not a.is_cuda:
         return row_min2_batch_plain(a.to(torch.float32), b.to(torch.float32),
                                     valid_b)
-    name = "row_min2_batch"
-    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=True)
-    B, M, d = a.shape
-    N = b.shape[1]
-    mins = torch.empty((B, M), dtype=torch.float32, device=a.device)
-    mins2 = torch.empty((B, M), dtype=torch.float32, device=a.device)
-    args = torch.empty((B, M), dtype=torch.int32, device=a.device)
-    if B * M == 0:
-        return mins, mins2, args
-    with torch.cuda.device(a.device):
-        err = _lib().grit_row_min2_batch(
-            a.data_ptr(), b.data_ptr(), vb.data_ptr(), mins.data_ptr(),
-            mins2.data_ptr(), args.data_ptr(), B, M, N, d,
-            _stream(a.device))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return mins, mins2, args
+    a, b, vb, _ = _check("row_min2_batch", a, b, valid_b, None, batched=True)
+    if a.shape[0] * a.shape[1] == 0:
+        return _empty(a.shape[:2], a.device, torch.float32, torch.float32,
+                      torch.int32)
+    return torch.ops.repro_torch.row_min2_batch(a, b, vb)
 
 
 def eps_count(a: torch.Tensor, b: torch.Tensor, eps,
@@ -557,12 +768,10 @@ def eps_count(a: torch.Tensor, b: torch.Tensor, eps,
         vb = None if valid_b is None else valid_b[None]
         return eps_count_batch_plain(a.to(torch.float32)[None],
                                      b.to(torch.float32)[None], eps, vb)[0]
-    name = "eps_count"
-    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=False)
-    M, N = a.shape[0], b.shape[0]
-    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
-    return _launch_eps_count(name, a, b, vb, None, eps, None, slots,
-                             ROWS_PER_SLOT, M, N, 0, 0, (M,))
+    a, b, vb, _ = _check("eps_count", a, b, valid_b, None, batched=False)
+    if a.shape[0] == 0:
+        return _empty(a.shape[:1], a.device, torch.int32)
+    return torch.ops.repro_torch.eps_count(a, b, vb, _eps2(eps))
 
 
 def row_min(a: torch.Tensor, b: torch.Tensor,
@@ -576,12 +785,10 @@ def row_min(a: torch.Tensor, b: torch.Tensor,
         mins, args = row_min_batch_plain(a.to(torch.float32)[None],
                                          b.to(torch.float32)[None], vb)
         return mins[0], args[0]
-    name = "row_min"
-    a, b, vb, _ = _check(name, a, b, valid_b, None, batched=False)
-    M, N = a.shape[0], b.shape[0]
-    slots = (M + ROWS_PER_SLOT - 1) // ROWS_PER_SLOT
-    return _launch_row_min(name, a, b, vb, slots, ROWS_PER_SLOT, M, N, 0, 0,
-                           (M,))
+    a, b, vb, _ = _check("row_min", a, b, valid_b, None, batched=False)
+    if a.shape[0] == 0:
+        return _empty(a.shape[:1], a.device, torch.float32, torch.int32)
+    return torch.ops.repro_torch.row_min(a, b, vb)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -630,7 +837,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: head_dim {D} is not one of "
                          f"{FLASH_HEAD_DIMS}")
     for tname, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or not _aligned(t):
             raise ValueError(f"{name}: {tname} must be contiguous and "
                              f"16-byte aligned")
         if t.numel() >= 2 ** 31:
@@ -643,19 +850,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
     if scale is None:
         scale = D ** -0.5
-    out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return torch.empty_like(q)
     if Sk == 0:
-        return out.zero_()            # no live key: the plain version's 0
-    with torch.cuda.device(q.device):
-        err = _flash_lib().grit_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            k.shape[1], Sq, Sk, D, Sk, Sk - Sq, float(scale),
-            int(bool(causal)),
-            0 if window is None else int(window),
-            0.0 if softcap is None else float(softcap),
-            _FLASH_DTYPES[q.dtype], _stream(q.device))
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
-    return out
+        return torch.zeros_like(q)    # no live key: the plain version's 0
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), 0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), float(scale))

@@ -3,17 +3,27 @@ and the batch a train step takes.
 
 ``ARCH_TRAIN`` holds the reference's (``repro.launch.specs``) per-arch
 training knobs, memory-driven: the optimizer, the microbatch count, and
-arctic's bfloat16 params outside the smoke configs.  ``build_cell`` (the
-dry-run lowering of a cell) waits for the cost-tooling slice.
+arctic's bfloat16 params outside the smoke configs.
+
+``build_cell(arch, shape)`` returns ``(fn, args, info)`` such that
+``fn(*args)`` is that (architecture x input-shape) cell's step on one
+device: the train step, the prefill or one decode step.  Every tensor of
+``args`` is a fake tensor (``FakeTensorMode``), so nothing is allocated:
+``launch/dryrun.py`` runs the cell under the mode of its arguments
+(``torch._guards.detect_fake_mode``) and the accountant of
+``launch/costs.py``, as the reference lowers and compiles its
+ShapeDtypeStructs.  The reference's ``mesh``, ``seq_parallel`` and
+``moe_alltoall`` wait for several cards (ROADMAP A18).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from ..configs import canonical, get_config
+from ..configs import ShapeCfg, canonical, get_config, get_shape
 from ..models.config import LMConfig
 from ..models.layers import dtype_of
 from ..train import TrainCfg
@@ -74,3 +84,81 @@ def train_batch(cfg: LMConfig, tokens, device,
                      torch.randn(shape, generator=gen, device=device,
                                  dtype=torch.float32).to(dtype))
     return out
+
+
+def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
+               attn_impl: Optional[str] = None,
+               overrides: Optional[dict] = None,
+               microbatches: Optional[int] = None, smoke: bool = False):
+    """(fn, args, info) of one cell on one device (module docstring).
+
+    ``shape`` is a name of ``configs.shapes.SHAPES`` or a ``ShapeCfg``;
+    ``device`` defaults to the CUDA device and raises without one;
+    ``attn_impl`` / ``overrides`` change the model config, and
+    ``microbatches`` the train config of ``train_cfg_for``; ``smoke``
+    takes the arch's smoke config (CPU-scale).  Params are
+    built as ``jax.eval_shape`` builds them: ``init_params`` on the
+    ``meta`` device, then fake tensors of the same shapes and dtypes on
+    ``device``; the train state, the batch (``batch_struct``) and the
+    cache (``init_cache``) are made under the same fake mode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..engine.adaptive import resolve_device
+    from ..models import decode_step, init_cache, init_params, prefill
+    from ..train import (get_optimizer, init_state, make_train_step,
+                         warmup_cosine)
+    from ..train.tree import tree_map
+
+    dev = resolve_device(device)
+    cfg = model_cfg_for(arch, smoke=smoke)
+    if attn_impl:
+        cfg = cfg.with_overrides(attn_impl=attn_impl)
+    if overrides:
+        cfg = cfg.with_overrides(**overrides)
+    sc = get_shape(shape) if isinstance(shape, str) else shape
+    meta = init_params(cfg, None, "meta")
+    mode = FakeTensorMode()
+
+    def fake(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=dev)
+
+    def batch(kind):
+        return {name: fake(shp, dt) for name, (shp, dt) in
+                batch_struct(cfg, kind, sc.seq_len, sc.global_batch).items()}
+
+    with mode:
+        params = tree_map(lambda t: fake(t.shape, t.dtype), meta)
+    info = {"arch": arch, "shape": sc.name, "kind": sc.kind}
+
+    if sc.kind == "train":
+        tcfg = train_cfg_for(arch)
+        if microbatches is not None:
+            tcfg = dataclasses.replace(tcfg, microbatches=microbatches)
+        opt = get_optimizer(tcfg.optimizer)
+        step_fn = make_train_step(cfg, tcfg, opt, warmup_cosine(
+            tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps))
+        with mode:
+            state = init_state(cfg, tcfg, opt, params)
+            train_in = batch("train")
+        info["microbatches"] = tcfg.microbatches
+        return step_fn, (state, train_in), info
+
+    max_len = sc.seq_len + (cfg.num_patches if cfg.family == "vlm" else 0)
+    with mode:
+        cache = init_cache(cfg, sc.global_batch, max_len, dev)
+        if sc.kind == "prefill":
+            prompt = batch("prefill")
+        else:
+            tokens = fake((sc.global_batch,), torch.int32)
+
+    if sc.kind == "prefill":
+        def prefill_step(params, batch, cache):
+            return prefill(cfg, params, batch, cache)
+
+        return prefill_step, (params, prompt, cache), info
+
+    # decode: one new token against a seq_len-deep cache
+    def serve_step(params, tokens, cache):
+        return decode_step(cfg, params, tokens, cache)
+
+    return serve_step, (params, tokens, cache), info

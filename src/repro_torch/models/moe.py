@@ -81,7 +81,10 @@ def dispatch(cfg: LMConfig, top_p: torch.Tensor, top_e: torch.Tensor,
     flat_w = top_p.reshape(T * K).to(dtype)
     _, order = torch.sort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # per-expert counts as bincount's, with a shape that does not depend
+    # on the data (fake tensors and the accountant run through it)
+    counts = torch.zeros((E,), dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * K, device=dev) - offsets[se]
     keep = pos_in_e < C
