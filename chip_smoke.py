@@ -69,6 +69,18 @@ result line) as soon as a phase fails:
            trace goes to ``build/chip_smoke_server_trace.json``.  Then
            the stream's predicts again on A with tracing off (no event
            recorded) and on, their median step seconds side by side
+  syncs    the port's invariant linter (``repro_torch.analysis``) over
+           ``src/repro_torch`` on this machine: clean, its active (0) and
+           suppressed findings per rule; then phase ``server``'s stream
+           once more through fresh servers A and B (restores of the same
+           snapshot, tracing off) under
+           ``torch.cuda.set_sync_debug_mode("warn")``: each sync's site
+           (the innermost frame under ``src/repro_torch``), the syncs per
+           server step and per 2,048-query predict batch, the labels of
+           every predict request equal to phase ``server``'s, and
+           ``missed``, the runtime sites that the static
+           ``hot-path-sync`` rule does not report (active or
+           suppressed), which must be empty
   sharded  the fit's points in ``SHARDS`` = 4 slab shards on the one card:
            ``cluster(..., engine="distributed", n_shards=4)`` cold (the
            path's first counted run), warm with the final caps, staged
@@ -229,8 +241,8 @@ Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
 server phase, the sharded phase, the lm phase, the families phase and
-the train phase (which must launch none); phase cost drives no new path
-(its runs count in ``launches_script`` only).
+the train phase (which must launch none); phases syncs and cost drive
+no new path (their runs count in ``launches_script`` only).
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -241,6 +253,7 @@ prints them, and the last line is
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import copy
 import dataclasses
@@ -252,6 +265,8 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -1504,6 +1519,137 @@ def server_phase(index, pts, eps, seed, smi):
                  live=idx_a.arrival_live(), final=idx_a.labels_arrival(),
                  core=idx_a.core_arrival())
     return fields, launches, captured[0], carry
+
+
+# --------------------------------------------------------------------------
+# syncs: the hot-path-sync rule against PyTorch's own sync detector
+# --------------------------------------------------------------------------
+
+def _call_ends(path, cache):
+    """``(line, col) -> last line`` of every call in the file ``path``."""
+    if path not in cache:
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+        cache[path] = {(n.lineno, n.col_offset): n.end_lineno
+                       for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    return cache[path]
+
+
+def syncs_phase(index, carry, smi):
+    """(a) The linter over the port's tree: clean, its active and
+    suppressed findings per rule.  (b) Phase ``server``'s stream through
+    fresh servers A and B (restores of the served index's snapshot, as
+    in phase ``server``) with tracing off, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: each sync's site is the
+    innermost frame under ``src/repro_torch``, and a site is *missed*
+    when the static ``hot-path-sync`` rule reports no call (active or
+    suppressed) whose lines hold it.  Returns the phase line's fields."""
+    from repro_torch import analysis, obs
+    from repro_torch.index import GritIndex
+    from repro_torch.serve import ClusterServer
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "src", "repro_torch")
+    t0 = time.perf_counter()
+    report = analysis.analyze_paths([pkg])
+    lint_s = time.perf_counter() - t0
+    require(report.ok, "the linter reports violations in src/repro_torch:\n"
+            + report.format())
+    by_rule = {r: dict(active=sum(v.rule == r for v in report.active),
+                       suppressed=sum(v.rule == r for v in report.suppressed))
+               for r in analysis.rule_names()}
+    ends, static = {}, {}
+    for v in report.violations:
+        if v.rule == "hot-path-sync":
+            last = _call_ends(v.path, ends).get((v.line, v.col), v.line)
+            static.setdefault(os.path.relpath(v.path, root), []).append(
+                (v.line, last))
+
+    script = carry["script"]
+    snap = index.snapshot()
+    idx_a, idx_b = (GritIndex.restore({k: v.copy() for k, v in snap.items()})
+                    for _ in range(2))
+    idx_b.enable_mutation_log()
+    require(not obs.enabled(), "tracing is on at phase syncs")
+    kw = dict(slots=SERVER_SLOTS, query_cap=SERVER_QUERY_CAP)
+    servers = {"A": ClusterServer(idx_a, mode="device", device_state=True,
+                                  **kw),
+               "B": ClusterServer(idx_b, mode="kernel", replicas=1, **kw)}
+    torch.cuda.synchronize()
+
+    prefix = pkg + os.sep
+    show = warnings.showwarning
+    seen = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return show(message, category, filename, lineno, file, line)
+        site, part = ("outside", 0), "predict"
+        for fr in traceback.extract_stack():
+            if fr.filename.startswith(prefix):
+                site = (os.path.relpath(fr.filename, root), fr.lineno)
+                if fr.name in ("insert", "delete"):
+                    part = "mutate"
+        rec = seen[tag]
+        rec["sites"][site] = rec["sites"].get(site, 0) + 1
+        rec[part] += 1
+
+    run_s = {}
+    for tag, srv in servers.items():
+        for kind, payload in script:
+            {"predict": srv.submit, "insert": srv.submit_insert,
+             "delete": srv.submit_delete}[kind](payload)
+        seen[tag] = {"sites": {}, "predict": 0, "mutate": 0}
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = hook
+                srv.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        run_s[tag] = time.perf_counter() - t0
+
+    # ---- checks ----------------------------------------------------------
+    servers_out, missed = {}, set()
+    for tag, srv in servers.items():
+        done = sorted(srv.done, key=lambda r: r.rid)
+        require(len(done) == len(script) and [r.kind for r in done]
+                == carry["kinds"], f"server {tag} did not answer the stream")
+        diff = [r.rid for r, want in zip(done, carry["labels"])
+                if r.kind == "predict" and not np.array_equal(r.labels, want)]
+        require(not diff, f"server {tag}'s labels differ from phase "
+                f"server's on predict requests {diff}")
+        rec = seen[tag]
+        sites = {f"{f}:{ln}": c for (f, ln), c in sorted(rec["sites"].items())
+                 if f != "outside"}
+        for f, ln in rec["sites"]:
+            if f != "outside" and not any(a <= ln <= b
+                                          for a, b in static.get(f, ())):
+                missed.add(f"{f}:{ln}")
+        queries = sum(st["queries"] for st in srv.step_log)
+        steps = len(srv.step_log)
+        calls = sum(1 for st in srv.step_log if st["queries"])
+        total = rec["predict"] + rec["mutate"]
+        servers_out[tag] = dict(
+            mode=srv.mode, steps=steps, predict_calls=calls,
+            queries=queries, syncs=total, syncs_predict=rec["predict"],
+            syncs_mutate=rec["mutate"],
+            syncs_outside_port=rec["sites"].get(("outside", 0), 0),
+            syncs_per_step=total / steps,
+            syncs_per_predict_call=rec["predict"] / calls,
+            syncs_per_predict_batch_2048=rec["predict"] * SERVE_BATCH
+            / queries, sites=sites, run_s=run_s[tag])
+    require(not missed, f"runtime sync sites the hot-path-sync rule does "
+            f"not report: {sorted(missed)}")
+    return dict(card=smi, lint=dict(
+        files_checked=report.files_checked, seconds=lint_s, rules=by_rule,
+        hot_path_sync_sites=sum(len(v) for v in static.values())),
+        servers=servers_out, labels_equal_server=True, missed=[],
+        phase_s=time.perf_counter() - t_phase)
 
 
 # --------------------------------------------------------------------------
@@ -3884,6 +4030,10 @@ def main() -> int:
                                  max_abs_err=err, argmin_mismatches=mism),
          script_s=time.perf_counter() - t_script)
     del server_call, sa_, sb_, svb_
+
+    # ---- syncs ------------------------------------------------------------
+    syncs = syncs_phase(index, server_carry, smi)
+    emit("syncs", **syncs, script_s=time.perf_counter() - t_script)
 
     # ---- sharded ----------------------------------------------------------
     before_sharded = dict(ops.LAUNCHES)  # sharded_phase resets the counts

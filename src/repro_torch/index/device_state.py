@@ -120,6 +120,7 @@ EDGE_MIN_FLAT_T = 1 << 20
 
 
 def _to_dev(ds, arr: np.ndarray) -> torch.Tensor:
+    # grit-lint: disable=hot-path-sync -- KNOWN: a copy from pageable host memory waits for the card; every upload of the resident plane (query packs, flat gather indices, mirror refreshes) comes through here
     return torch.from_numpy(np.ascontiguousarray(arr)).to(ds.device)
 
 

@@ -583,12 +583,15 @@ class GritIndex:
         anchor = np.concatenate(
             [anchor, np.zeros((pc.group_cap - B, self.d))])[:, None, :]
         dmin_dev, argi_dev = kernel_ops.row_min_batch(
+            # grit-lint: disable=hot-path-sync -- KNOWN: the query slots' upload from pageable host memory waits for the card
             torch.from_numpy((a - anchor).astype(np.float32)).to(dev),
+            # grit-lint: disable=hot-path-sync -- KNOWN: the candidate slots' upload waits for the card
             torch.from_numpy((b - anchor).astype(np.float32)).to(dev),
+            # grit-lint: disable=hot-path-sync -- KNOWN: the validity mask's upload waits for the card
             valid_b=torch.from_numpy(vb).to(dev))
-        # grit-lint: disable=hot-path-sync -- the predict kernel's intended block point: both reductions resolve in one transfer
+        # grit-lint: disable=hot-path-sync -- the predict kernel's intended block point: the labels need the row minima, which wait for the kernel
         dmin = dmin_dev.cpu().numpy().reshape(-1)
-        argi = argi_dev.cpu().numpy().reshape(-1)  # grit-lint: disable=hot-path-sync -- same block point as dmin above
+        argi = argi_dev.cpu().numpy().reshape(-1)  # grit-lint: disable=hot-path-sync -- KNOWN: a second blocking copy after the block point above; one transfer of both outputs would remove it
         out = np.full(m, -1, np.int64)
         dq = dmin[qslot_of]
         aq = argi[qslot_of]

@@ -62,6 +62,7 @@ def normal(shape, gen: Optional[torch.Generator], device, std: float,
         n = min(DRAW_CHUNK, flat.numel() - i)
         flat[i:i + n] = torch.randn(n, generator=gen, device=device,
                                     dtype=torch.float32).mul_(std)
+    # grit-lint: disable=donation-aliasing -- out is filled through its flat view on purpose; this returns the filled tensor
     return out
 
 
