@@ -108,6 +108,34 @@ result line) as soon as a phase fails:
            two runs', each with the counts set to 0 just before it and
            read just after; the fit must launch both distance kernels,
            server C ``row_min_batch``
+  mesh     one process per rank (``launch.mesh.spawn_ranks``: spawned
+           processes, a ``FileStore`` under the git-ignored ``build/``,
+           every rank killed and the script failed past its time limit);
+           the kernels were built before, so the ranks only load them.
+           One line a part: ``fit``, the sharded phase's points on
+           ``MESH_RANKS`` = 4 gloo ranks of a 2 x 2 ``DeviceMesh`` on
+           the one card (host staging of every collective), each rank
+           running its slab through the kernel plane with phase
+           sharded's final caps, every rank's result raw-equal to phase
+           sharded's in-process 4-shard fit; each rank's cold (counted:
+           launches, bytes each move sent) and warm seconds; then one
+           NCCL rank per card through ``cluster(engine="distributed",
+           mesh=...)``, its core flags, core partition and noise equal to
+           the single-device fit's and every other differing label a
+           contested border; ``moe``, mixtral-8x7b's MoE block at its
+           published width (d 4,096, ff 14,336, 8 experts, top-2) on 4 x
+           256 tokens in float32 and bfloat16, both explicit-collective
+           variants on the gloo 2 x 2 and the NCCL mesh, held to
+           ``moe_forward`` at capacity factor E / K (nothing dropped):
+           within 1e-4 (float32) / 3e-2 (bfloat16) of the largest |y|;
+           ``train``, qwen2-1.5b at its published width, 2 of 28 layers
+           (``reduced``), float32, on the NCCL mesh with DTensor state:
+           two steps of 8 x 512 tokens equal to two single-device steps
+           (loss within 1e-4, params within rtol 2e-4 + atol 1e-5);
+           ``dryrun``, ``dryrun.run_cell`` of qwen2-1.5b x train_4k on
+           16 x 16 and 2 x 16 x 16 and of mixtral-8x7b x decode_32k with
+           ``moe_alltoall`` on 16 x 16 over a fake process group: per-rank
+           param bytes equal to ``param_pspec``'s, collectives counted
   guard_band  the two guard-band kernels (the same warp-per-task kernel
            as the distance kernels, kinds band and min2) against their
            plain versions on the largest kernel-mode predict call, on the
@@ -240,8 +268,9 @@ result line) as soon as a phase fails:
 Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
-server phase, the sharded phase, the lm phase, the families phase and
-the train phase (which must launch none); phases syncs and cost drive
+server phase, the sharded phase, the mesh phase (its ranks' counts,
+each read in the rank's own process), the lm phase, the families phase
+and the train phase (which must launch none); phases syncs and cost drive
 no new path (their runs count in ``launches_script`` only).
 
 The line before the last but one is the kernels' summary object, the
@@ -2059,7 +2088,369 @@ def sharded_phase(pts, eps, fit, serve_carry, server_carry, seed, dev, smi):
     out["launches_phase"] = dict(spent)
     out["phase_s"] = time.perf_counter() - t_phase
     return out, {k: launches_fit[k] + launches_server[k]
-                 for k in launches_fit}, spent
+                 for k in launches_fit}, spent, (caps, kfit)
+
+
+# --------------------------------------------------------------------------
+# the mesh: one process per rank
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 4                  # gloo ranks on the one card: a 2 x 2 mesh
+MESH_MOE_ARCH = "mixtral-8x7b"
+MESH_MOE_TOKENS = (4, 256)      # the MoE block's input, batch x sequence
+MESH_TRAIN_LAYERS = 2           # qwen2-1.5b's 28 layers cut to 2
+MESH_TRAIN_TOKENS = (8, 512)
+
+
+def _mesh_moe_case(dtype, dev, seed):
+    """mixtral-8x7b's MoE block at its published width (d 4,096, ff
+    14,336, 8 experts, top-2): float32 weights from a seeded generator
+    on ``dev`` (the same on every rank), x [4, 256, d] in ``dtype``, and
+    the config at capacity factor E / K, which drops nothing."""
+    from repro_torch.launch.specs import model_cfg_for
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.moe import moe_params
+    cfg = model_cfg_for(MESH_MOE_ARCH)
+    m = cfg.moe
+    cfg = cfg.with_overrides(
+        dtype=dtype, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    gen = torch.Generator(device=dev).manual_seed(seed + 120_000)
+    p = moe_params(cfg, gen, dev)
+    x = torch.randn((*MESH_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev, dtype=torch.float32).to(dtype_of(dtype))
+    return cfg, p, x
+
+
+def _mesh_moe_rank(mesh, dev, seed):
+    """Both explicit-collective MoE variants on ``mesh`` in float32 and
+    bfloat16: this rank's y block (host) and aux, and the seconds of a
+    warm call."""
+    from repro_torch.models import moe as M
+    out = {}
+    n_data = mesh.size(0)
+    r = mesh.get_local_rank("data")
+    for dtype in ("float32", "bfloat16"):
+        cfg, p, x = _mesh_moe_case(dtype, dev, seed)
+        B = x.shape[0]
+        xb = x[r * B // n_data:(r + 1) * B // n_data]
+        for fn in ("moe_forward_shardmap", "moe_forward_shardmap_ep"):
+            call = lambda: getattr(M, fn)(cfg, p, xb, mesh, ("data",),  # noqa: E731
+                                          "model")
+            y, aux = call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            out[f"{fn}/{dtype}"] = dict(
+                y=y.float().cpu().numpy(), aux=float(aux),
+                warm_s=time.perf_counter() - t0)
+        del p, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_fit_rank(mesh, dev, pts, eps, caps):
+    """The distributed fit of this rank's slab: cold (the first in the
+    process, counted: the kernels' launches and the bytes each move
+    sent) and warm; returns the result's arrays too."""
+    from repro_torch.dist import comm, distributed_fit
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    for k in comm.SENT:
+        comm.SENT[k] = 0
+    t0 = time.perf_counter()
+    fit = distributed_fit(pts, eps, MIN_PTS, caps=caps, mesh=mesh,
+                          device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches, sent = dict(ops.LAUNCHES), dict(comm.SENT)
+    t0 = time.perf_counter()
+    warm = distributed_fit(pts, eps, MIN_PTS, caps=caps, mesh=mesh,
+                           device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    fields = ("labels", "core", "point_grid", "shard_of", "cut_coords")
+    require(all(np.array_equal(getattr(fit, f), getattr(warm, f))
+                for f in fields), "a warm mesh fit gave another result")
+    return dict(cold_s=cold_s, warm_s=warm_s, launches=launches,
+                sent_bytes=sent, report=fit.report.as_vector().tolist(),
+                **{f: getattr(fit, f) for f in fields})
+
+
+def mesh_gloo_rank(rank, world, dev, pts_path, eps, caps, seed):
+    """One of ``MESH_RANKS`` gloo ranks on the card (a 2 x 2 mesh): the
+    fit, then the MoE variants."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(2, "cuda")
+    out = {"fit": _mesh_fit_rank(mesh, dev, np.load(pts_path), eps, caps)}
+    out["moe"] = _mesh_moe_rank(mesh, dev, seed)
+    return out
+
+
+def _mesh_train(mesh, dev, seed):
+    """qwen2-1.5b at its published width, ``MESH_TRAIN_LAYERS`` layers,
+    float32, remat off, AdamW without weight decay at lr 1e-3: two
+    steps with DTensor state on ``mesh`` and two single-device steps,
+    same params and batch."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.specs import model_cfg_for
+    from repro_torch.models import init_params
+    from repro_torch.train import (TrainCfg, get_optimizer, init_state,
+                                   make_train_step)
+    from repro_torch.train.tree import flatten
+    cfg = model_cfg_for(TRAIN_ARCH).with_overrides(
+        num_layers=MESH_TRAIN_LAYERS, dtype="float32", remat=False)
+    tcfg, opt = TrainCfg(), get_optimizer("adamw", weight_decay=0.0)
+    B, S = MESH_TRAIN_TOKENS
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0)
+    batches = [{"tokens": torch.as_tensor(pipe.next_batch()["tokens"]).to(
+        device=dev, dtype=torch.int32)} for _ in range(2)]
+
+    def run(mesh_):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed + 130_000), dev)
+        state = init_state(cfg, tcfg, opt, params)
+        step = make_train_step(cfg, tcfg, opt, lambda s: 1e-3, mesh=mesh_)
+        if mesh_ is not None:
+            state = shd.place_tree(state, shd.state_shardings(cfg, mesh_,
+                                                              state))
+        losses, secs = [], []
+        for b in batches:
+            if mesh_ is not None:
+                b = shd.place_tree(b, shd.batch_shardings(cfg, mesh_, b))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        return (losses, secs,
+                [t.detach() for t in flatten(shd.gather_tree(
+                    state["params"]))[0]])
+
+    ml, ms, mp = run(mesh)
+    sl, ss, sp = run(None)
+    worst = 0.0
+    for a, b in zip(mp, sp):
+        excess = ((a - b).abs() - (1e-5 + 2e-4 * b.abs())).max()
+        worst = max(worst, float(excess))
+    return dict(reduced=f"{MESH_TRAIN_LAYERS} of 28 layers",
+                losses_mesh=ml, losses_one=sl, step_s_mesh=ms,
+                step_s_one=ss,
+                loss_err=max(abs(a - b) for a, b in zip(ml, sl)),
+                param_max_abs_err=max(float((a - b).abs().max())
+                                      for a, b in zip(mp, sp)),
+                param_tolerance_excess=worst)
+
+
+def mesh_nccl_rank(rank, world, dev, pts_path, eps, seed):
+    """A rank of an NCCL group of one rank per card: the distributed
+    fit through ``cluster``, the MoE variants and the train step on its
+    ``(world, 1)`` mesh."""
+    from repro_torch.engine import cluster
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, "cuda")
+    pts = np.load(pts_path)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = cluster(pts, eps, MIN_PTS, engine="distributed", mesh=mesh,
+                  device=dev)
+    torch.cuda.synchronize()
+    out = {"fit": dict(s=time.perf_counter() - t0,
+                       launches=dict(ops.LAUNCHES), labels=res.labels,
+                       core=res.core, overflow=list(res.overflow),
+                       attempts=len(res.attempts),
+                       use_kernels=res.stats["use_kernels"])}
+    out["moe"] = _mesh_moe_rank(mesh, dev, seed)
+    out["train"] = _mesh_train(mesh, dev, seed)
+    return out
+
+
+def _mesh_moe_check(ranks, n_model, dev, seed, tag):
+    """The ranks' y blocks (one per data rank; the model ranks of a block
+    bit-equal) against ``moe_forward`` on the whole batch."""
+    from repro_torch.models.moe import moe_forward
+    out = {}
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        cfg, p, x = _mesh_moe_case(dtype, dev, seed)
+        t0 = time.perf_counter()
+        want, aux = moe_forward(cfg, p, x)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        want = want.float().cpu().numpy()
+        scale = float(np.abs(want).max())
+        del p, x
+        torch.cuda.empty_cache()
+        for fn in ("moe_forward_shardmap", "moe_forward_shardmap_ep"):
+            key = f"{fn}/{dtype}"
+            blocks = [r["moe"][key]["y"] for r in ranks[::n_model]]
+            for i, r in enumerate(ranks):
+                require(np.array_equal(r["moe"][key]["y"],
+                                       blocks[i // n_model]),
+                        f"mesh/{tag}: {key}: the model ranks of a batch "
+                        f"block disagree")
+            err = float(np.abs(np.concatenate(blocks) - want).max())
+            require(err <= tol * scale, f"mesh/{tag}: {key} is {err} from "
+                    f"moe_forward (tolerance {tol} x {scale})")
+            out[key] = dict(max_abs_err=err, rel_err=err / scale,
+                            tolerance=tol,
+                            aux_err=abs(ranks[0]["moe"][key]["aux"]
+                                        - float(aux)),
+                            warm_s=[r["moe"][key]["warm_s"] for r in ranks],
+                            moe_forward_s=ref_s)
+    return out
+
+
+def _mesh_dryrun(dev):
+    """The dry run's mesh records on the card: qwen2-1.5b x train_4k on
+    16 x 16 and 2 x 16 x 16, mixtral-8x7b x decode_32k on 16 x 16 with
+    the all-to-all lever; per-rank param bytes equal to param_pspec's."""
+    import types
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import model_cfg_for
+    from repro_torch.models import init_params
+    recs = []
+    for arch, shape, mp, a2a in (("qwen2-1.5b", "train_4k", False, False),
+                                 ("qwen2-1.5b", "train_4k", True, False),
+                                 (MESH_MOE_ARCH, "decode_32k", False, True)):
+        rec = run_cell(arch, shape, device=dev, multi_pod=mp,
+                       moe_alltoall=a2a)
+        require(rec["status"] == "ok", f"mesh/dryrun: {arch} x {shape}")
+        names = ("pod", "data", "model") if mp else ("data", "model")
+        fake = types.SimpleNamespace(axis_names=names, shape=dict(
+            zip(names, (2, 16, 16) if mp else (16, 16))))
+        cfg = model_cfg_for(arch)
+        leaves, _ = shd.keyed_leaves(init_params(cfg, None, "meta"))
+        want = sum(shd.local_numel(tuple(l.shape), shd.param_pspec(
+            cfg, fake, k, l.ndim, tuple(l.shape), moe_ep=a2a), fake)
+            * l.element_size() for k, l in leaves)
+        require(rec["param_bytes_per_rank"] == want,
+                f"mesh/dryrun: {arch} per-rank param bytes "
+                f"{rec['param_bytes_per_rank']} != {want}")
+        require(rec["roofline"]["t_collective"] > 0,
+                f"mesh/dryrun: {arch} counted no collective")
+        recs.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "chips", "param_bytes_per_rank",
+            "collective_bytes_per_chip", "flops_per_chip", "bytes_per_chip",
+            "roofline", "lower_s", "compile_s")})
+    return recs
+
+
+def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
+    """Phase ``mesh``: one line a part (module docstring).  Returns the
+    mesh path's launches: the gloo ranks' cold fits and the NCCL
+    ranks' fits, each rank's counts set to 0 just before and read just
+    after in its own process."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+
+    caps, loop = mesh_carry
+    n_cards = torch.cuda.device_count()
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    torch.cuda.empty_cache()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        pts_path = os.path.join(tmp, "points.npy")
+        np.save(pts_path, pts)
+        # ---- gloo: MESH_RANKS ranks on the one card ----------------------
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_gloo_rank, MESH_RANKS, backend="gloo",
+                            device="cuda:0",
+                            args=(pts_path, eps, caps, seed), timeout=600,
+                            workdir=tmp)
+        gloo_s = time.perf_counter() - t0
+        fields = ("labels", "core", "point_grid", "shard_of", "cut_coords")
+        for r in ranks:
+            f = r["fit"]
+            for name in fields:
+                require(np.array_equal(f[name], getattr(loop, name)),
+                        f"mesh/fit: a rank's {name} differs from phase "
+                        f"sharded's in-process 4-shard fit")
+            require(f["report"] == loop.report.as_vector().tolist(),
+                    "mesh/fit: the report differs")
+            for k in ("eps_count_batch", "row_min_batch"):
+                require(f["launches"][k] > 0, f"mesh/fit: a rank never "
+                        f"launched {k}")
+            for k, v in f["launches"].items():
+                launches[k] += v
+        emit("mesh", part="fit", card=smi, backend="gloo",
+             ranks=MESH_RANKS, mesh="2x2", device="cuda:0", n=len(pts),
+             raw_equal_to_sharded=True,
+             cold_s=[r["fit"]["cold_s"] for r in ranks],
+             warm_s=[r["fit"]["warm_s"] for r in ranks],
+             sent_bytes=[r["fit"]["sent_bytes"] for r in ranks],
+             launches_per_rank=[r["fit"]["launches"] for r in ranks],
+             spawn_s=gloo_s, script_s=time.perf_counter() - t_script)
+        moe_gloo = _mesh_moe_check(ranks, 2, dev, seed, "gloo")
+        del ranks
+        # ---- NCCL: one rank per card --------------------------------------
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(mesh_nccl_rank, n_cards, backend="nccl",
+                           device=None, args=(pts_path, eps, seed),
+                           timeout=600, workdir=tmp)
+        nccl_s = time.perf_counter() - t0
+    for r in nccl:
+        f = r["fit"]
+        require(f["overflow"] == [] and f["use_kernels"],
+                f"mesh/fit: the NCCL fit ran {f['overflow']}")
+        require(np.array_equal(f["core"], fit.core),
+                "mesh/fit: NCCL core flags differ from the single-device "
+                "fit's")
+        lookup = label_map(f["labels"], fit.labels, fit.core)
+        require(lookup is not None, "mesh/fit: the NCCL fit's core "
+                "partition differs from the single-device fit's")
+        require(np.array_equal(f["labels"] == -1, fit.labels == -1),
+                "mesh/fit: the NCCL fit's noise differs")
+        got = mapped(lookup, f["labels"])
+        rows = np.flatnonzero(got != fit.labels)
+        require(not fit.core[rows].any(), "mesh/fit: a core point is "
+                "labelled otherwise")
+        pts64 = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+        bad = contested_ok(pts64, torch.as_tensor(fit.core, device=dev),
+                           torch.as_tensor(fit.labels, device=dev), rows,
+                           got[rows], eps * eps)
+        del pts64
+        require(bad == 0, f"mesh/fit: {bad} NCCL border labels differ "
+                f"from the single-device fit's without being contested")
+        r["fit"]["contested_borders_differing"] = int(len(rows))
+        for k, v in f["launches"].items():
+            launches[k] += v
+    emit("mesh", part="fit", card=smi, backend="nccl", ranks=n_cards,
+         mesh=f"{n_cards}x1", fit_s=[r["fit"]["s"] for r in nccl],
+         attempts=[r["fit"]["attempts"] for r in nccl],
+         launches_per_rank=[r["fit"]["launches"] for r in nccl],
+         partition_equal_to_single_device=True,
+         contested_borders_differing=[
+             r["fit"]["contested_borders_differing"] for r in nccl],
+         spawn_s=nccl_s,
+         script_s=time.perf_counter() - t_script)
+    emit("mesh", part="moe", card=smi, arch=MESH_MOE_ARCH,
+         tokens=list(MESH_MOE_TOKENS), capacity="E / K (drops nothing)",
+         gloo_2x2=moe_gloo,
+         nccl=_mesh_moe_check(nccl, 1, dev, seed, "nccl"),
+         script_s=time.perf_counter() - t_script)
+    for r in nccl:
+        t = r["train"]
+        require(t["loss_err"] < 1e-4 and t["param_tolerance_excess"] <= 0,
+                f"mesh/train: the mesh step differs from the single-device "
+                f"step: {t}")
+    emit("mesh", part="train", card=smi, arch=TRAIN_ARCH, backend="nccl",
+         mesh=f"{n_cards}x1", tokens=list(MESH_TRAIN_TOKENS),
+         tolerance="loss 1e-4; params rtol 2e-4, atol 1e-5",
+         ranks=[r["train"] for r in nccl],
+         script_s=time.perf_counter() - t_script)
+    t0 = time.perf_counter()
+    recs = _mesh_dryrun(dev)
+    emit("mesh", part="dryrun", card=smi, records=recs,
+         seconds=time.perf_counter() - t0,
+         script_s=time.perf_counter() - t_script)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -4037,11 +4428,17 @@ def main() -> int:
 
     # ---- sharded ----------------------------------------------------------
     before_sharded = dict(ops.LAUNCHES)  # sharded_phase resets the counts
-    sharded, sharded_launches, sharded_spent = sharded_phase(
+    sharded, sharded_launches, sharded_spent, mesh_carry = sharded_phase(
         pts, eps, res, serve_carry, server_carry, args.seed, dev, smi)
     emit("sharded", **sharded, launches=sharded_launches,
          script_s=time.perf_counter() - t_script)
     del serve_carry, server_carry
+    torch.cuda.empty_cache()
+
+    # ---- mesh ---------------------------------------------------------------
+    mesh_launches = mesh_phase(pts, eps, mesh_carry, res, args.seed, dev,
+                               smi, t_script)
+    del mesh_carry
     torch.cuda.empty_cache()
 
     # ---- guard-band kernels ---------------------------------------------
@@ -4093,23 +4490,24 @@ def main() -> int:
     cost_launches = cost_phase(dev, args.seed, cost_fit, smi, t_script)
     del cost_fit
 
-    # launches on the seven driven paths (the cold fit, the serve phase,
+    # launches on the eight driven paths (the cold fit, the serve phase,
     # the server phase, the sharded phase's cold distributed fit plus
-    # server C, the lm and families phases' served parts, the train
-    # phase), each counted on its own run; the distance kernels have no
-    # place on the LM paths and flash none on the other four; the train
-    # path launches none (its phase requires it); launches_script also
-    # counts the comparison launches and phase cost's counted and timed
-    # runs
+    # server C, the mesh phase's rank fits, the lm and families phases'
+    # served parts, the train phase), each counted on its own run; the
+    # distance kernels have no place on the LM paths and flash none on
+    # the other five; the train path launches none (its phase requires
+    # it); launches_script also counts the comparison launches and phase
+    # cost's counted and timed runs
     by_path = {name: {"fit": launches[name], "serve": serve_launches[name],
                       "server": server_launches[name],
                       "sharded": sharded_launches[name],
+                      "mesh": mesh_launches[name],
                       "lm": lm_launches[name],
                       "families": families_launches[name],
                       "train": train_launches[name]}
                for name in REPLACES}
     for name, paths in by_path.items():
-        off = (("fit", "serve", "server", "sharded", "train")
+        off = (("fit", "serve", "server", "sharded", "mesh", "train")
                if name == "flash_attention"
                else ("lm", "families", "train"))
         require(all(paths[p] == 0 for p in off),
@@ -4123,6 +4521,7 @@ def main() -> int:
                                      + before_server[r["name"]]
                                      + before_sharded[r["name"]]
                                      + sharded_spent[r["name"]]
+                                     + mesh_launches[r["name"]]
                                      + after_band[r["name"]]
                                      + lm_launches[r["name"]]
                                      + families_launches[r["name"]]
@@ -4144,6 +4543,7 @@ def main() -> int:
                          + before_server["flash_attention"]
                          + before_sharded["flash_attention"]
                          + sharded_spent["flash_attention"]
+                         + mesh_launches["flash_attention"]
                          + flash_compare + lm_launches["flash_attention"]
                          + families_launches["flash_attention"]
                          + train_launches["flash_attention"]

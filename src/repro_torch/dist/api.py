@@ -11,7 +11,10 @@ shard and cut coordinates) that
 on top of it.
 
 Where the shards run: ``devices`` (one torch device per shard, repeats
-allowed), or the shorthand ``n_shards`` shards all on ``device``.
+allowed), or the shorthand ``n_shards`` shards all on ``device``, all in
+this process; or ``mesh``, a ``DeviceMesh`` over a process group, one
+shard per rank on the rank's ``device`` (the reference's ``mesh``).
+Every rank is given the same points and returns the same result.
 ``device=None`` is the CUDA device and raises when there is none, as
 every entry point of the port does; the tests pass ``device="cpu"``.
 """
@@ -26,7 +29,7 @@ import torch
 
 from .. import obs
 from ..core.device_dbscan import OverflowReport
-from ..core.sync import count_read, host_read
+from ..core.sync import host_read
 from ..engine.adaptive import resolve_device
 
 from .halo import census_halo_cap, halo_census
@@ -107,29 +110,26 @@ def _census_metrics(pts_sh, valid_sh, eps, caps, n_shards, cap) -> None:
         1.0 - valid_total / (n_shards * cap) if cap else 0.0)
 
 
-def _to_host(tensors: List[torch.Tensor]) -> np.ndarray:
-    """Per-shard tensors -> one [n_shards, cap] host array (a counted
-    host read per shard)."""
-    for _ in tensors:
-        count_read()
-    return np.stack([t.cpu().numpy() for t in tensors])
-
-
 def distributed_fit(points: np.ndarray, eps: float, min_pts: int,
                     devices: Optional[Sequence] = None,
                     caps: Optional[ClusterCaps] = None,
                     pad_to: Optional[int] = None,
                     traced: Optional[bool] = None, *,
                     n_shards: Optional[int] = None,
-                    device=None) -> DistributedFitResult:
+                    device=None, mesh=None) -> DistributedFitResult:
     """Pre-shard, run the cluster step, unpermute (vectorized).
 
     ``devices`` / ``n_shards`` / ``device`` place the shards (see
-    :func:`shard_devices`).  The report is truthy iff any static cap
-    overflowed on any shard; a truthy report means every array is a
-    truncated artifact and must not be trusted (the adaptive driver in
-    ``repro_torch.engine`` grows the caps and retries before letting
-    that escape).
+    :func:`shard_devices`); with ``mesh`` every rank of its process
+    group calls this with the same arguments, packs the same slabs,
+    runs its own shard (mesh ranks flattened row-major are the slabs in
+    order) on ``device``, and gets every shard's rows back, so each rank
+    returns the same result; the report is OR-ed over the ranks, so an
+    adaptive retry decides the same on each.  The report is truthy iff
+    any static cap overflowed on any shard; a truthy report means every
+    array is a truncated artifact and must not be trusted (the adaptive
+    loop in ``repro_torch.engine`` grows the caps and retries before
+    letting that escape).
 
     ``traced`` (default: ``repro_torch.obs`` tracing state) times the
     three stages apart -- halo exchange / local cluster / reconcile as
@@ -140,10 +140,16 @@ def distributed_fit(points: np.ndarray, eps: float, min_pts: int,
     """
     if traced is None:
         traced = obs.enabled()
-    devs = shard_devices(devices, n_shards, device)
+    if mesh is not None:
+        if devices is not None or n_shards is not None:
+            raise ValueError("pass mesh= or devices= / n_shards=, not both")
+        devs, n_sh = None, mesh.mesh.numel()
+        device = resolve_device(device)
+    else:
+        devs = shard_devices(devices, n_shards, device)
+        n_sh = len(devs)
     pts = np.asarray(points, np.float64)
     n = pts.shape[0]
-    n_sh = len(devs)
     if caps is None:
         # default grit caps, but a halo cap sized from the actual
         # boundary-band census (the adaptive engine additionally sizes
@@ -158,15 +164,15 @@ def distributed_fit(points: np.ndarray, eps: float, min_pts: int,
         cap = pts_sh.shape[1]
         if traced:
             _census_metrics(pts_sh, valid_sh, eps, caps, n_sh, cap)
+        halo_fn, local_fn, reconcile_fn, comm = make_staged_cluster_steps(
+            devs, eps, min_pts, caps, mesh=mesh, device=device)
         with obs.span("dist.fit.transfer") as sp:
             sh_pts = [torch.from_numpy(pts_sh[s]).to(dev)
-                      for s, dev in enumerate(devs)]
+                      for s, dev in zip(comm.shards, comm.devices)]
             sh_valid = [torch.from_numpy(valid_sh[s]).to(dev)
-                        for s, dev in enumerate(devs)]
+                        for s, dev in zip(comm.shards, comm.devices)]
             sp.sync(sh_pts, sh_valid)
 
-        halo_fn, local_fn, reconcile_fn = make_staged_cluster_steps(
-            devs, eps, min_pts, caps)
         # traced: a span per stage, each waiting for its shards' outputs;
         # untraced: one dist.fit.spmd_step span over the three
         stage = obs.span if traced else (lambda name: obs.NOOP_SPAN)
@@ -184,14 +190,16 @@ def distributed_fit(points: np.ndarray, eps: float, min_pts: int,
                                       gr_lab, gr_core, lo_idx, hi_idx)
                 sp.sync(labels)
             step_sp.sync(labels, core, point_grid)
-        vec = report_vector(flags, hov)
+        vec = report_vector(flags, hov, comm)
         report = OverflowReport.from_vector(host_read(vec))
 
         with obs.span("dist.fit.unpack"):
-            labels = unshard_by_perm(_to_host(labels), perm,
+            labels = unshard_by_perm(comm.host_rows(labels), perm,
                                      n).astype(np.int64)
-            core = unshard_by_perm(_to_host(core), perm, n, fill=False)
-            point_grid = unshard_by_perm(_to_host(point_grid), perm, n)
+            core = unshard_by_perm(comm.host_rows(core), perm, n,
+                                   fill=False)
+            point_grid = unshard_by_perm(comm.host_rows(point_grid), perm,
+                                         n)
             shard_row = np.repeat(
                 np.arange(n_sh, dtype=np.int64)[:, None], cap, axis=1)
             shard_of = unshard_by_perm(shard_row, perm, n)
@@ -204,8 +212,8 @@ def distributed_dbscan(points: np.ndarray, eps: float, min_pts: int,
                        devices: Optional[Sequence] = None,
                        caps: Optional[ClusterCaps] = None,
                        pad_to: Optional[int] = None, *,
-                       n_shards: Optional[int] = None, device=None
-                       ) -> Tuple[np.ndarray, OverflowReport]:
+                       n_shards: Optional[int] = None, device=None,
+                       mesh=None) -> Tuple[np.ndarray, OverflowReport]:
     """Legacy wrapper: (labels in original point order, report).
 
     The report is a fresh host instance (Python bools) -- callers may
@@ -213,5 +221,6 @@ def distributed_dbscan(points: np.ndarray, eps: float, min_pts: int,
     overflow-flag contract.
     """
     res = distributed_fit(points, eps, min_pts, devices, caps=caps,
-                          pad_to=pad_to, n_shards=n_shards, device=device)
+                          pad_to=pad_to, n_shards=n_shards, device=device,
+                          mesh=mesh)
     return res.labels, res.report

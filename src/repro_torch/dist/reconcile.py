@@ -9,7 +9,7 @@ shards.  Each shared core point therefore yields one edge
 ``(home shard label, remote shard label)`` between the two per-shard
 label spaces; the per-shard edge lists are gathered in shard order and
 one pointer-jumping pass maps every ``(shard, local label)`` pair to
-its global component.
+its global component (on every rank, when the shards are ranks).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Sequence
 import torch
 
 from ..core.labels import label_propagation
+from .comm import LoopComm
 
 
 def shared_point_edges(own_labels: torch.Tensor, own_core: torch.Tensor,
@@ -56,15 +57,21 @@ def shared_point_edges(own_labels: torch.Tensor, own_core: torch.Tensor,
 
 def global_component_map(edges: Sequence[torch.Tensor],
                          edge_valid: Sequence[torch.Tensor], n_shards: int,
-                         label_space: int) -> torch.Tensor:
-    """Concatenate the per-shard edge lists in shard order (on the
-    first list's device) and pointer-jump them into one map
-    ``(shard * L + local label) -> global component`` ([n_shards * L]
-    int32); each shard copies the map to its own device to read it."""
-    dev = edges[0].device
-    all_edges = torch.cat([e.to(dev) for e in edges]).reshape(-1, 2)
-    all_ok = torch.cat([v.to(dev) for v in edge_valid]).reshape(-1)
+                         label_space: int, comm=None) -> torch.Tensor:
+    """Concatenate the per-shard edge lists in shard order and
+    pointer-jump them into one map ``(shard * L + local label) -> global
+    component`` ([n_shards * L] int32).
+
+    ``edges`` / ``edge_valid`` hold the lists of the shards this process
+    holds; ``comm`` (``dist/comm.py``) gathers every shard's: in one
+    process on the first list's device (the default), or across the
+    ranks of a process group, where every rank builds the same map."""
+    if comm is None:
+        comm = LoopComm([e.device for e in edges])
+    all_edges = comm.shard_concat(list(edges)).reshape(-1, 2)
+    all_ok = comm.shard_concat(list(edge_valid)).reshape(-1)
     n_nodes = n_shards * label_space
-    node_valid = torch.ones((n_nodes,), dtype=torch.bool, device=dev)
+    node_valid = torch.ones((n_nodes,), dtype=torch.bool,
+                            device=all_edges.device)
     return label_propagation(n_nodes, all_edges.clamp_min(0), all_ok,
                              node_valid)

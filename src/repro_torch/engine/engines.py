@@ -170,7 +170,8 @@ def _device_kernels_engine(points, eps, min_pts, **opts) -> ClusterResult:
                  "exchange + global label reconciliation), adaptive caps")
 def _distributed_engine(points, eps, min_pts, *, device=None,
                         devices: Optional[Sequence] = None,
-                        n_shards: Optional[int] = None, caps=None,
+                        n_shards: Optional[int] = None, mesh=None,
+                        caps=None,
                         use_kernels: Optional[bool] = None,
                         max_retries: int = 8,
                         growth: float = 2.0) -> ClusterResult:
@@ -178,7 +179,11 @@ def _distributed_engine(points, eps, min_pts, *, device=None,
 
     The shards run on ``devices`` (one per shard, repeats allowed), or
     ``n_shards`` shards on ``device``; with neither, one shard per
-    visible CUDA device (see ``repro_torch.dist.shard_devices``).  Caps
+    visible CUDA device (see ``repro_torch.dist.shard_devices``); with
+    ``mesh`` (a ``DeviceMesh``) one shard per rank of its process group,
+    on the rank's ``device``: every rank calls ``cluster`` with the same
+    points and gets the same result, and retries in lockstep, since each
+    reads the report OR-ed over the ranks.  Caps
     are estimated from *per-shard* grid statistics
     (:func:`repro_torch.engine.estimate_shard_caps`), the halo cap from
     the boundary-band census (``repro_torch.dist.census_halo_cap``).
@@ -196,8 +201,11 @@ def _distributed_engine(points, eps, min_pts, *, device=None,
     pts = np.asarray(points, np.float64)
     n, d = pts.shape
     _check_device_grid_range(pts, eps)
-    devs = shard_devices(devices, n_shards, device)
-    n_sh = len(devs)
+    if mesh is not None:
+        devs, n_sh = [resolve_device(device)], mesh.mesh.numel()
+    else:
+        devs = shard_devices(devices, n_shards, device)
+        n_sh = len(devs)
     if caps is None:
         uk = all(dv.type == "cuda" for dv in devs) if use_kernels is None \
             else bool(use_kernels)
@@ -211,7 +219,9 @@ def _distributed_engine(points, eps, min_pts, *, device=None,
                                            use_kernels=bool(use_kernels)))
 
     def run(c):
-        fit = distributed_fit(pts, eps, min_pts, devs, caps=c)
+        fit = (distributed_fit(pts, eps, min_pts, caps=c, mesh=mesh,
+                               device=devs[0]) if mesh is not None else
+               distributed_fit(pts, eps, min_pts, devs, caps=c))
         return fit, fit.report
 
     def grow(c, overflowed):

@@ -34,7 +34,10 @@ allocated) and counts, as ``hlo_costs.analyze`` does:
   byte rule above (q / k / v or a / b and the masks read once, the
   outputs written once);
 * collectives: the ``_c10d_functional`` ops, at the wire factors of
-  ``launch/roofline.py``.
+  ``launch/roofline.py``;
+* a ``DTensor`` operator is counted as the operators it runs on its
+  local shard and the collectives it sends: the count of a mesh run
+  is per rank.
 
 Operations are kept by class (``flops_by_class``): ``bf16`` (bf16 / fp16
 products on the tensor cores), ``tf32`` (float32 products when TF32 is
@@ -52,6 +55,7 @@ import weakref
 from typing import Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -233,6 +237,11 @@ class CostMode(TorchDispatchMode):
     # ---- the count --------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            # a DTensor runs its op on its local shards (and sends its
+            # own collectives): those reach this mode and are counted,
+            # per rank
+            return NotImplemented
         out = func(*args, **kwargs)
         name = func._schema.name
         if func.is_view or name in _FREE:

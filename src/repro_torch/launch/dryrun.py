@@ -15,15 +15,29 @@ count (``torch_flop_counter``, in place of ``xla_cost_analysis``), and
 not hold), ``temp_size`` the peak of the bytes the run held above its
 arguments, and ``generated_code_size`` 0 (eager: nothing is compiled).
 
+Meshes: by default each cell is one device's (``mesh`` "1").
+``--mesh single`` / ``multi`` / ``both`` count one rank of the
+reference's production meshes, 16 x 16 ("16x16") and 2 x 16 x 16
+("2x16x16"), over a fake process group of 256 / 512 ranks in this
+process (``launch.mesh.fake_world``): ``build_cell(mesh=...)`` places
+the cell's tensors as ``DTensor`` s over fake shards, and the accountant
+counts the rank's own operators plus the ``_c10d_functional``
+collectives they start.  ``--seq-parallel`` and ``--moe-alltoall``
+(without ``--mesh``: on 16 x 16) set the reference's two levers.  A mesh
+record adds ``param_bytes_per_rank``, the bytes of the rank's param
+shards.  ``--cluster`` (the distributed GriT-DBSCAN step on the
+production meshes) exits != 0: the port's fit reads data-dependent
+sizes back to the host, which fake tensors cannot give, and its count
+of the step's collective schedule per rank is still to be written.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape all \\
       --device cpu --out build/dryrun.json
+  python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \\
+      --mesh both --device cpu
 Without ``--device`` it runs on the CUDA device and raises when there is
-none.  Every cell runs on one device (``mesh`` "1"): ``--mesh multi`` /
-``both``, ``--seq-parallel``, ``--moe-alltoall`` and ``--cluster`` need
-several cards (ROADMAP A18) and exit != 0.  Exit code != 0 on any cell
-failure.
+none.  Exit code != 0 on any cell failure.
 """
 
 from __future__ import annotations
@@ -35,14 +49,25 @@ import sys
 import time
 import traceback
 
-NEEDS_A18 = ("needs a mesh of several cards, which the port does not have "
-             "yet (ROADMAP A18); every cell here runs on one device")
+MESHES = {"one": [None], "single": [False], "multi": [True],
+          "both": [False, True]}
+NO_CLUSTER = ("counts no cluster step yet: the port's fit reads "
+              "data-dependent sizes back to the host, which fake tensors "
+              "cannot give (ROADMAP: the --cluster dry run)")
+
+
+def mesh_name(multi_pod) -> str:
+    return {None: "1", False: "16x16", True: "2x16x16"}[multi_pod]
 
 
 def _tensor_leaves(tree):
+    """The tensors of ``tree``; a ``DTensor`` as its local shard (the
+    bytes one rank holds)."""
     import torch
+    from torch.distributed.tensor import DTensor
     from torch.utils._pytree import tree_leaves
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def count_cell(fn, args):
@@ -68,31 +93,57 @@ def count_cell(fn, args):
 
 
 def run_cell(arch: str, shape, *, device=None, attn_impl=None,
-             overrides=None) -> dict:
+             overrides=None, multi_pod=None, seq_parallel: bool = False,
+             moe_alltoall: bool = False) -> dict:
     """The dry-run record of one cell (module docstring); ``shape`` is a
-    name of ``configs.SHAPES`` or a ``ShapeCfg``."""
+    name of ``configs.SHAPES`` or a ``ShapeCfg``.  ``multi_pod`` None is
+    one device, False / True one rank of 16 x 16 / 2 x 16 x 16."""
     from ..configs import long_500k_supported
-    from .roofline import roofline_terms
-    from .specs import build_cell
 
     name = shape if isinstance(shape, str) else shape.name
-    rec = {"arch": arch, "shape": name, "mesh": "1"}
+    rec = {"arch": arch, "shape": name, "mesh": mesh_name(multi_pod)}
     if name == "long_500k" and not long_500k_supported(arch):
         rec["status"] = "skipped"
         rec["reason"] = "full-attention arch: 500k decode is quadratic " \
                         "(see DESIGN.md shape-applicability)"
         return rec
+    if multi_pod is None:
+        return _count_record(rec, arch, shape, device, attn_impl, overrides,
+                             None, seq_parallel, moe_alltoall)
+    from .mesh import fake_world, make_production_mesh
+    with fake_world(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+        return _count_record(rec, arch, shape, device, attn_impl, overrides,
+                             mesh, seq_parallel, moe_alltoall)
+
+
+def _count_record(rec, arch, shape, device, attn_impl, overrides, mesh,
+                  seq_parallel, moe_alltoall) -> dict:
+    from ..models import sharding_ctx
+    from .roofline import roofline_terms
+    from .specs import build_cell
 
     t0 = time.perf_counter()
-    fn, args, info = build_cell(arch, shape, device=device,
-                                attn_impl=attn_impl, overrides=overrides)
-    rec.update(info)
-    t1 = time.perf_counter()
-    _, la, memory = count_cell(fn, args)
-    t2 = time.perf_counter()
+    try:
+        fn, args, info = build_cell(arch, shape, device=device,
+                                    attn_impl=attn_impl, overrides=overrides,
+                                    mesh=mesh, seq_parallel=seq_parallel,
+                                    moe_alltoall=moe_alltoall)
+        rec.update(info)
+        t1 = time.perf_counter()
+        _, la, memory = count_cell(fn, args)
+        t2 = time.perf_counter()
+    finally:
+        sharding_ctx.set_policy(None)
+        sharding_ctx.set_shardmap_moe(None)
+    if mesh is not None:
+        rec["param_bytes_per_rank"] = sum(
+            t.numel() * t.element_size()
+            for t in _tensor_leaves(args[0]["params"] if info["kind"] ==
+                                    "train" else args[0]))
     rec.update({
         "status": "ok",
-        "chips": 1,
+        "chips": 1 if mesh is None else mesh.mesh.numel(),
         "lower_s": t1 - t0,
         "compile_s": t2 - t1,
         "flops_per_chip": la["flops"],
@@ -114,8 +165,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="single",
-                    choices=["single", "multi", "both"])
+    ap.add_argument("--mesh", default=None, choices=list(MESHES),
+                    help="one: one device (the default); single: 16x16; "
+                         "multi: 2x16x16; both (--seq-parallel and "
+                         "--moe-alltoall default to single)")
     ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--moe-alltoall", action="store_true")
     ap.add_argument("--cluster", action="store_true",
@@ -128,13 +181,11 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
 
-    for flag, on in (("--mesh " + args.mesh, args.mesh != "single"),
-                     ("--seq-parallel", args.seq_parallel),
-                     ("--moe-alltoall", args.moe_alltoall),
-                     ("--cluster", args.cluster)):
-        if on:
-            print(f"dryrun: {flag} {NEEDS_A18}", file=sys.stderr)
-            return 2
+    if args.cluster:
+        print(f"dryrun: --cluster {NO_CLUSTER}", file=sys.stderr)
+        return 2
+    mesh = args.mesh or ("single" if args.seq_parallel or args.moe_alltoall
+                         else "one")
 
     from ..configs import ARCHS, SHAPES
     from ..engine.adaptive import resolve_device
@@ -154,26 +205,31 @@ def main(argv=None) -> int:
     results, failures = [], 0
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch} x {shape} x 1"
-            try:
-                rec = run_cell(arch, shape, device=device,
-                               attn_impl=args.attn_impl,
-                               overrides=overrides or None)
-            except Exception as e:
-                traceback.print_exc()
-                rec = {"arch": arch, "shape": shape, "mesh": "1",
-                       "status": "failed", "error": repr(e)}
-                failures += 1
-            results.append(rec)
-            extra = ""
-            if rec["status"] == "ok":
-                r = rec["roofline"]
-                extra = (f" bound={r['dominant']}"
-                         f" t_c={r['t_compute']:.3e}s"
-                         f" t_m={r['t_memory']:.3e}s"
-                         f" t_x={r['t_collective']:.3e}s"
-                         f" compile={rec['compile_s']:.2f}s")
-            print(f"[{rec['status']:7s}] {tag}{extra}", flush=True)
+            for mp in MESHES[mesh]:
+                tag = f"{arch} x {shape} x {mesh_name(mp)}"
+                try:
+                    rec = run_cell(arch, shape, device=device,
+                                   attn_impl=args.attn_impl,
+                                   overrides=overrides or None,
+                                   multi_pod=mp,
+                                   seq_parallel=args.seq_parallel,
+                                   moe_alltoall=args.moe_alltoall)
+                except Exception as e:
+                    traceback.print_exc()
+                    rec = {"arch": arch, "shape": shape,
+                           "mesh": mesh_name(mp), "status": "failed",
+                           "error": repr(e)}
+                    failures += 1
+                results.append(rec)
+                extra = ""
+                if rec["status"] == "ok":
+                    r = rec["roofline"]
+                    extra = (f" bound={r['dominant']}"
+                             f" t_c={r['t_compute']:.3e}s"
+                             f" t_m={r['t_memory']:.3e}s"
+                             f" t_x={r['t_collective']:.3e}s"
+                             f" compile={rec['compile_s']:.2f}s")
+                print(f"[{rec['status']:7s}] {tag}{extra}", flush=True)
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -12,8 +12,18 @@ device: the train step, the prefill or one decode step.  Every tensor of
 ``launch/dryrun.py`` runs the cell under the mode of its arguments
 (``torch._guards.detect_fake_mode``) and the accountant of
 ``launch/costs.py``, as the reference lowers and compiles its
-ShapeDtypeStructs.  The reference's ``mesh``, ``seq_parallel`` and
-``moe_alltoall`` wait for several cards (ROADMAP A18).
+ShapeDtypeStructs.
+
+With ``mesh`` (a ``DeviceMesh``; the dry run's is over a fake process
+group) the cell is one rank's step: the arguments are ``DTensor`` s over
+fake local shards, placed by ``launch/sharding.py`` (params by
+``param_shardings``, the train state by ``state_shardings``, inputs by
+``batch_shardings``, caches by ``cache_shardings``), the activation
+policy (``seq_parallel``) is installed and ``moe_alltoall`` routes the
+MoE blocks to the explicit-collective variants with expert-parallel
+storage, as the reference's ``build_cell`` does.  The train cell is
+``make_train_step``'s FSDP form; prefill and decode gather the params,
+and the cache's model-sharded dims, and run on the rank's batch rows.
 """
 
 from __future__ import annotations
@@ -89,8 +99,11 @@ def train_batch(cfg: LMConfig, tokens, device,
 def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
                attn_impl: Optional[str] = None,
                overrides: Optional[dict] = None,
-               microbatches: Optional[int] = None, smoke: bool = False):
-    """(fn, args, info) of one cell on one device (module docstring).
+               microbatches: Optional[int] = None, smoke: bool = False,
+               mesh=None, seq_parallel: bool = False,
+               moe_alltoall: bool = False):
+    """(fn, args, info) of one cell on one device, or of one rank of
+    ``mesh`` (module docstring).
 
     ``shape`` is a name of ``configs.shapes.SHAPES`` or a ``ShapeCfg``;
     ``device`` defaults to the CUDA device and raises without one;
@@ -100,14 +113,18 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
     built as ``jax.eval_shape`` builds them: ``init_params`` on the
     ``meta`` device, then fake tensors of the same shapes and dtypes on
     ``device``; the train state, the batch (``batch_struct``) and the
-    cache (``init_cache``) are made under the same fake mode."""
+    cache (``init_cache``) are made under the same fake mode.  With a
+    ``mesh`` the activation policy and the MoE route stay installed
+    (``models.sharding_ctx``) until the next ``build_cell``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..engine.adaptive import resolve_device
-    from ..models import decode_step, init_cache, init_params, prefill
+    from ..models import (decode_step, init_cache, init_params, prefill,
+                          sharding_ctx)
     from ..train import (get_optimizer, init_state, make_train_step,
                          warmup_cosine)
     from ..train.tree import tree_map
+    from .sharding import gather_tree
 
     dev = resolve_device(device)
     cfg = model_cfg_for(arch, smoke=smoke)
@@ -129,6 +146,21 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
     with mode:
         params = tree_map(lambda t: fake(t.shape, t.dtype), meta)
     info = {"arch": arch, "shape": sc.name, "kind": sc.kind}
+    if mesh is None:
+        sharding_ctx.set_policy(None)
+        sharding_ctx.set_shardmap_moe(None)
+    else:
+        from . import sharding as shd
+        from .mesh import batch_axes
+        sharding_ctx.set_policy(shd.activation_specs(
+            cfg, mesh, seq_parallel=seq_parallel))
+        sharding_ctx.set_shardmap_moe(
+            (mesh, batch_axes(mesh), "model")
+            if moe_alltoall and cfg.moe is not None else None)
+
+        def put(tree, shardings):
+            with mode:
+                return shd.place_tree(tree, shardings(tree))
 
     if sc.kind == "train":
         tcfg = train_cfg_for(arch)
@@ -140,6 +172,14 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
         with mode:
             state = init_state(cfg, tcfg, opt, params)
             train_in = batch("train")
+        if mesh is not None:
+            step_fn = make_train_step(cfg, tcfg, opt, warmup_cosine(
+                tcfg.peak_lr, tcfg.warmup_steps, tcfg.total_steps),
+                mesh=mesh)
+            state = put(state, lambda t: shd.state_shardings(
+                cfg, mesh, t, moe_ep=moe_alltoall))
+            train_in = put(train_in, lambda t: shd.batch_shardings(
+                cfg, mesh, t))
         info["microbatches"] = tcfg.microbatches
         return step_fn, (state, train_in), info
 
@@ -150,15 +190,45 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
             prompt = batch("prefill")
         else:
             tokens = fake((sc.global_batch,), torch.int32)
+    if mesh is not None:
+        params = put(params, lambda t: shd.param_shardings(
+            cfg, mesh, t, moe_ep=moe_alltoall))
+        cache = put(cache, lambda t: shd.cache_shardings(cfg, mesh, t))
+        if sc.kind == "prefill":
+            prompt = put(prompt, lambda t: shd.batch_shardings(
+                cfg, mesh, t))
+        else:
+            tokens = put({"tokens": tokens}, lambda t: shd.batch_shardings(
+                cfg, mesh, t))["tokens"]
 
     if sc.kind == "prefill":
         def prefill_step(params, batch, cache):
-            return prefill(cfg, params, batch, cache)
+            return prefill(cfg, gather_tree(params), _rows(batch, 0),
+                           _rows(cache, 1))
 
         return prefill_step, (params, prompt, cache), info
 
     # decode: one new token against a seq_len-deep cache
     def serve_step(params, tokens, cache):
-        return decode_step(cfg, params, tokens, cache)
+        return decode_step(cfg, gather_tree(params), _rows(tokens, 0),
+                           _rows(cache, 1))
 
     return serve_step, (params, tokens, cache), info
+
+
+def _rows(tree, dim: int):
+    """This rank's rows of a batch (``dim`` 0) or cache (``dim`` 1) tree:
+    every ``DTensor`` leaf keeps its sharding of ``dim`` and is gathered
+    over every other dim it is sharded on, then taken local.  Other
+    leaves pass as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ..train.tree import tree_map
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        pl = [p if p.is_shard(dim) else Replicate() for p in t.placements]
+        return t.redistribute(t.device_mesh, pl).to_local()
+
+    return tree_map(one, tree)

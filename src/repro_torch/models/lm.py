@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import LMConfig
+from .sharding_ctx import constrain
 from .transformer import (block_params, group_layout, init_block_cache,
                           leaves, num_groups, stack_forward, stack_params)
 
@@ -93,7 +94,7 @@ def embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return x
+    return constrain(x, "btd")
 
 
 def unembed_weights(cfg: LMConfig, params: dict) -> torch.Tensor:
@@ -109,7 +110,7 @@ def logits_for(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
         L.dtype_of(cfg.logit_dtype)).to(torch.float32)
     if cfg.logit_softcap is not None:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return constrain(logits, "btv")
 
 
 # --------------------------------------------------------------------------

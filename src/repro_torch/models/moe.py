@@ -13,19 +13,28 @@ than a [T, E, C] one-hot dispatch product.
   5. weighted scatter-add back to token positions.
 
 Load-balancing auxiliary loss follows the switch-transformer formulation.
-The reference's two ``shard_map`` variants (expert- and model-parallel
-over a mesh) have no counterpart yet: they need collectives over several
-cards (ROADMAP A18).  ``moe_forward_dense_fallback`` is the oracle.
+
+The reference's two ``shard_map`` variants run here as one process per
+rank of a ``DeviceMesh``, on the rank's block of the batch, with explicit
+collectives on the mesh's sub-groups (``dist/comm.py``'s host-staging
+rule under gloo): :func:`moe_forward_shardmap` (experts, or virtual
+experts, over 'model'; one sum of the outputs over 'model') and
+:func:`moe_forward_shardmap_ep` (experts over the batch axes, the FFN dim
+over 'model'; two token all-to-alls over the batch axes).  ``moe_forward``
+dispatches to them under ``sharding_ctx.set_shardmap_moe``, as the
+reference's does.  ``moe_forward_dense_fallback`` is the oracle.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from . import layers as L
 from .config import LMConfig
+from .sharding_ctx import constrain, get_shardmap_moe
 
 
 def moe_params(cfg: LMConfig, gen, device, lead=()) -> dict:
@@ -62,86 +71,334 @@ def route(cfg: LMConfig, p: dict, xf: torch.Tensor):
     return probs, top_p, top_e
 
 
+def _slot_tables(key: torch.Tensor, flat_t: torch.Tensor,
+                 flat_w: torch.Tensor, n_keys: int, n_real: int, C: int,
+                 T: int):
+    """Slot tables of a capacity-``C`` dispatch of (token, choice) pairs
+    with bucket ``key`` in ``[0, n_keys)``; buckets ``>= n_real`` are
+    dropped.  Returns (tok [n_real*C] int64, the token of each slot or
+    ``T`` for an empty one; w [n_real*C], its router weight or 0; the
+    per-bucket counts).
+
+    A stable sort of the token-major list by key, as
+    ``jnp.argsort(stable=True)`` orders it, decides which pairs a full
+    bucket drops.  Dropped pairs all write the pad slot ``n_real*C`` of
+    a buffer one longer than the table; it is sliced off and never
+    read."""
+    dev = key.device
+    _, order = torch.sort(key, stable=True)
+    se, st, sw = key[order], flat_t[order], flat_w[order]
+    # per-bucket counts as bincount's, with a shape that does not depend
+    # on the data (fake tensors and the accountant run through it)
+    counts = torch.zeros((n_keys,), dtype=torch.int64,
+                         device=dev).scatter_add_(0, key,
+                                                  torch.ones_like(key))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(key.shape[0], device=dev) - offsets[se]
+    keep = (se < n_real) & (pos < C)
+    slot = torch.where(keep, se * C + pos, n_real * C)
+    tok = torch.full((n_real * C + 1,), T, dtype=torch.int64, device=dev)
+    tok[slot] = torch.where(keep, st, T)
+    w = torch.zeros((n_real * C + 1,), dtype=flat_w.dtype, device=dev)
+    w[slot] = torch.where(keep, sw, torch.zeros_like(sw))
+    return tok[:n_real * C], w[:n_real * C], counts
+
+
+def _flat_choices(top_p: torch.Tensor, top_e: torch.Tensor, dtype):
+    """The token-major (expert, token, weight) lists of the top-k
+    choices."""
+    T, K = top_e.shape
+    return (top_e.reshape(T * K),
+            torch.arange(T, device=top_e.device).repeat_interleave(K),
+            top_p.reshape(T * K).to(dtype))
+
+
 def dispatch(cfg: LMConfig, top_p: torch.Tensor, top_e: torch.Tensor,
              C: int, dtype):
     """The slot tables of a capacity-``C`` dispatch: (tok_for_slot [E*C]
     int64, the token of each expert slot or T for an empty one;
     w_for_slot [E*C] in ``dtype``, its router weight or 0; the number of
-    (token, choice) pairs dropped at capacity).
-
-    A stable sort of the token-major (token, choice) list by expert, as
-    ``jnp.argsort(stable=True)`` orders it, decides which tokens a full
-    expert drops.  Dropped pairs all write the pad slot E*C of a buffer
-    one longer than the table; it is sliced off and never read."""
+    (token, choice) pairs dropped at capacity)."""
     T, K = top_e.shape
     E = cfg.moe.num_experts
-    dev = top_e.device
-    flat_e = top_e.reshape(T * K)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
-    flat_w = top_p.reshape(T * K).to(dtype)
-    _, order = torch.sort(flat_e, stable=True)
-    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    # per-expert counts as bincount's, with a shape that does not depend
-    # on the data (fake tensors and the accountant run through it)
-    counts = torch.zeros((E,), dtype=torch.int64, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    offsets = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=dev) - offsets[se]
-    keep = pos_in_e < C
-    slot = torch.where(keep, se * C + pos_in_e, E * C)
-    tok_for_slot = torch.full((E * C + 1,), T, dtype=torch.int64,
-                              device=dev)
-    tok_for_slot[slot] = torch.where(keep, st, T)
-    w_for_slot = torch.zeros((E * C + 1,), dtype=dtype, device=dev)
-    w_for_slot[slot] = torch.where(keep, sw, torch.zeros_like(sw))
-    dropped = T * K - torch.clamp_max(counts, C).sum()
-    return tok_for_slot[:E * C], w_for_slot[:E * C], dropped
+    flat_e, flat_t, flat_w = _flat_choices(top_p, top_e, dtype)
+    tok, w, counts = _slot_tables(flat_e, flat_t, flat_w, E, E, C, T)
+    return tok, w, T * K - torch.clamp_max(counts, C).sum()
+
+
+def _aux_loss(cfg: LMConfig, probs: torch.Tensor, top_e: torch.Tensor):
+    """Switch-style load-balancing loss of one batch of tokens."""
+    T, K = top_e.shape
+    E = cfg.moe.num_experts
+    me = probs.mean(dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32,
+                     device=probs.device).index_add_(
+        0, top_e.reshape(-1),
+        torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32,
+                   device=probs.device))
+    return cfg.moe.router_aux_weight * E * torch.sum(me * ce)
+
+
+def _combine(out: torch.Tensor, w: torch.Tensor, tok: torch.Tensor, T: int
+             ) -> torch.Tensor:
+    """The weighted scatter-add of expert slots ``out`` [slots, d] back
+    to their tokens: [T, d].
+
+    index_add_ on the card adds by atomics in no fixed order; with
+    top_k = 2 every real row receives at most two terms onto 0, and
+    round(round(0 + a) + b) == round(round(0 + b) + a) in any dtype,
+    so the sum does not depend on their order.  The pad row T collects
+    every empty slot in any order; it is sliced off."""
+    flat_out = out.reshape(-1, out.shape[-1]) * w[:, None]
+    return torch.zeros((T + 1, out.shape[-1]), dtype=out.dtype,
+                       device=out.device).index_add_(0, tok, flat_out)[:T]
+
+
+def _ffn(cfg: LMConfig, expert_in, wg, wu, wd) -> torch.Tensor:
+    """The batched expert GLU FFN: three ``torch.bmm`` over the expert
+    axis."""
+    h = L._act(cfg, torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wu)
+    return torch.bmm(h, wd)
 
 
 def moe_forward(cfg: LMConfig, p: dict, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32)."""
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32).
+
+    Under ``set_shardmap_moe((mesh, batch_axes, model_axis))`` ``x`` is
+    this rank's block of the batch and the work goes to the
+    expert-parallel variant when the experts split over the batch axes
+    and the FFN dim over 'model', else to the model-parallel one."""
+    ctx = get_shardmap_moe()
+    if ctx is not None:
+        from ..launch.mesh import axis_size
+        mesh, batch_axes, model_axis = ctx
+        n_data = math.prod(axis_size(mesh, a) for a in batch_axes)
+        if n_data > 1 and cfg.moe.num_experts % n_data == 0 and \
+                cfg.moe.d_ff % axis_size(mesh, model_axis) == 0:
+            return moe_forward_shardmap_ep(cfg, p, x, *ctx)
+        return moe_forward_shardmap(cfg, p, x, *ctx)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    E, K = m.num_experts, m.top_k
+    E = m.num_experts
     C = capacity(cfg, T)
     xf = x.reshape(T, d)
 
-    # ---- routing (f32) ----
+    # ---- routing (f32) and the load-balancing aux loss ----
     probs, top_p, top_e = route(cfg, p, xf)
-
-    # load-balancing aux loss (switch-style)
-    me = probs.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, top_e.reshape(-1),
-        torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32,
-                   device=x.device))
-    aux = m.router_aux_weight * E * torch.sum(me * ce)
+    aux = _aux_loss(cfg, probs, top_e)
 
     # ---- sort-based dispatch ----
     tok_for_slot, w_for_slot, _ = dispatch(cfg, top_p, top_e, C, x.dtype)
     xpad = torch.cat([xf, torch.zeros((1, d), dtype=x.dtype,
                                       device=x.device)])
-    expert_in = xpad[tok_for_slot].reshape(E, C, d)
+    expert_in = constrain(xpad[tok_for_slot].reshape(E, C, d), "moe_ecd")
 
     # ---- batched expert FFN (weights cast on every call, as the
     # reference casts them) ----
-    wg = p["w_gate"].to(x.dtype)
-    wu = p["w_up"].to(x.dtype)
-    wd = p["w_down"].to(x.dtype)
-    h = L._act(cfg, torch.bmm(expert_in, wg)) * torch.bmm(expert_in, wu)
-    expert_out = torch.bmm(h, wd)                              # [E, C, d]
+    expert_out = _ffn(cfg, expert_in,
+                      constrain(p["w_gate"].to(x.dtype), "moe_w_in"),
+                      constrain(p["w_up"].to(x.dtype), "moe_w_in"),
+                      constrain(p["w_down"].to(x.dtype), "moe_w_out"))
+    expert_out = constrain(expert_out, "moe_ecd")            # [E, C, d]
 
     # ---- weighted combine ----
-    # index_add_ on the card adds by atomics in no fixed order; with
-    # top_k = 2 every real row receives at most two terms onto 0, and
-    # round(round(0 + a) + b) == round(round(0 + b) + a) in any dtype,
-    # so the sum does not depend on their order.  The pad row T collects
-    # every empty slot in any order; it is sliced off.
-    flat_out = expert_out.reshape(E * C, d) * w_for_slot[:, None]
-    y = torch.zeros((T + 1, d), dtype=x.dtype, device=x.device).index_add_(
-        0, tok_for_slot, flat_out)[:T]
+    y = _combine(expert_out, w_for_slot, tok_for_slot, T)
+    return y.reshape(B, S, d), aux
+
+
+# --------------------------------------------------------------------------
+# explicit-collective variants (one process per mesh rank)
+# --------------------------------------------------------------------------
+
+class _SumOverGroups(torch.autograd.Function):
+    """Forward: the sum of ``x`` over each group in turn, times
+    ``scale``.  Backward: the incoming gradient, unchanged.
+
+    Both uses hold a result that every rank of the groups then uses
+    alike: the ff-slice sum over 'model' (Megatron's row-parallel
+    reduction, whose input gradient is the output's) and the mean of
+    the aux loss over the batch axes, whose per-rank gradients the
+    training step averages over the batch axes afterwards."""
+
+    @staticmethod
+    def forward(ctx, x, groups, scale):
+        from ..dist.comm import all_reduce
+        for g in groups:
+            x = all_reduce(x, "sum", g)
+        return x * scale if scale != 1 else x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` in equal blocks; its own inverse, so the
+    backward pass sends the gradient blocks back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ..dist.comm import all_to_all
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..dist.comm import all_to_all
+        return all_to_all(g, ctx.group), None
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A weight as one local tensor: a ``DTensor`` is gathered."""
+    from torch.distributed.tensor import DTensor
+    return w.full_tensor() if isinstance(w, DTensor) else w
+
+
+def _batch_group(mesh, batch_axes):
+    """(the process group over the batch axes flattened row-major, its
+    size, this rank's index in it)."""
+    if len(batch_axes) == 1:
+        sub = mesh[batch_axes[0]]
+    else:
+        sub = mesh[tuple(batch_axes)]._flatten()
+    return sub.get_group(), sub.size(), sub.get_local_rank()
+
+
+def _route_local(cfg: LMConfig, p: dict, xf: torch.Tensor, mesh,
+                 batch_axes):
+    """Routing of this rank's tokens, the aux loss meaned over the batch
+    axes (the reference's ``pmean``)."""
+    from ..launch.mesh import axis_size
+    probs, top_p, top_e = route(cfg, {"router": _whole(p["router"])}, xf)
+    aux = _aux_loss(cfg, probs, top_e)
+    groups = [mesh.get_group(a) for a in batch_axes]
+    n = math.prod(axis_size(mesh, a) for a in batch_axes)
+    return top_p, top_e, _SumOverGroups.apply(aux, groups, 1.0 / n)
+
+
+def moe_forward_shardmap(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
+                         batch_axes, model_axis
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model-parallel MoE on this rank's block ``x`` [B_loc, S, d] of the
+    batch -> (its y block, the aux loss meaned over the batch axes).
+
+    Activations are replicated over the model axis within each batch
+    block, so every model rank buckets, with no communication, the
+    tokens routed to the experts it owns; the one collective is the sum
+    of the combined outputs over 'model'.  Experts map onto the model
+    axis as ``V = max(E, n_model)`` virtual experts: E a multiple of
+    n_model shards whole experts; E < n_model splits each expert's FFN
+    dim into ``n_model / E`` column slices, whose partial
+    down-projections the same sum recombines.  Capacity is per (rank,
+    expert): ``C = max(8, ceil(cf * K * T_loc / E / 8) * 8)``.  Weights
+    are whole tensors (a ``DTensor`` is gathered); each rank slices its
+    own."""
+    from ..launch.mesh import axis_size
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    n_model = axis_size(mesh, model_axis)
+    j = mesh.get_local_rank(model_axis)
+    T = B * S
+    if E % n_model == 0:
+        split, v_loc = 1, E // n_model
+    else:
+        if n_model % E:
+            raise ValueError(f"{E} experts on a model axis of {n_model}")
+        split, v_loc = n_model // E, 1
+    if m.d_ff % split:
+        raise ValueError(f"d_ff {m.d_ff} does not split in {split}")
+    ff_v = m.d_ff // split
+    C = max(8, int(math.ceil(m.capacity_factor * K * T / E / 8)) * 8)
+
+    wg, wu, wd = (_whole(p[k]) for k in ("w_gate", "w_up", "w_down"))
+    if split == 1:
+        e0 = j * v_loc
+        wg, wu, wd = wg[e0:e0 + v_loc], wu[e0:e0 + v_loc], wd[e0:e0 + v_loc]
+    else:
+        e, q = j // split, j % split
+        cols = slice(q * ff_v, (q + 1) * ff_v)
+        wg, wu, wd = wg[e:e + 1, :, cols], wu[e:e + 1, :, cols], \
+            wd[e:e + 1, cols, :]
+    # the rank's slices, cast on every call as moe_forward casts
+    wg, wu, wd = wg.to(x.dtype), wu.to(x.dtype), wd.to(x.dtype)
+
+    xf = x.reshape(T, d)
+    top_p, top_e, aux = _route_local(cfg, p, xf, mesh, batch_axes)
+    flat_e, flat_t, flat_w = _flat_choices(top_p, top_e, x.dtype)
+    if split == 1:
+        local_e = flat_e - e0
+        mine = (flat_e >= e0) & (flat_e < e0 + v_loc)
+    else:
+        local_e = torch.zeros_like(flat_e)
+        mine = flat_e == j // split
+    key = torch.where(mine, local_e, v_loc)
+    tok, w_slot, _ = _slot_tables(key, flat_t, flat_w, v_loc + 1, v_loc, C,
+                                  T)
+    xpad = torch.cat([xf, torch.zeros((1, d), dtype=x.dtype,
+                                      device=x.device)])
+    out = _ffn(cfg, xpad[tok].reshape(v_loc, C, d), wg, wu, wd)
+    y = _combine(out, w_slot, tok, T)
+    y = _SumOverGroups.apply(y, [mesh.get_group(model_axis)], 1.0)
+    return y.reshape(B, S, d), aux
+
+
+def moe_forward_shardmap_ep(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
+                            batch_axes, model_axis
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on this rank's block ``x`` [B_loc, S, d]:
+    experts over the batch axes, the FFN dim over 'model' -- the
+    GShard / DeepSpeed all-to-all pattern.
+
+      1. each batch rank buckets its tokens by destination rank (the
+         owner of the routed expert) into [n_data, E_loc, C, d];
+      2. an all-to-all over the batch axes delivers [n_data(source),
+         E_loc, C, d];
+      3. the local batched FFN on the rank's [E_loc, ff / n_model] slice;
+      4. the reverse all-to-all returns the outputs to each token's home
+         rank, which combines them with its slot -> token map;
+      5. a sum over 'model' adds the ff slices.
+
+    Requires E % n_data == 0 and d_ff % n_model == 0; capacity is per
+    (source rank, expert), as in :func:`moe_forward_shardmap`."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    from ..launch.mesh import axis_size
+    group, n_data, r = _batch_group(mesh, batch_axes)
+    n_model = axis_size(mesh, model_axis)
+    j = mesh.get_local_rank(model_axis)
+    if E % n_data or m.d_ff % n_model:
+        raise ValueError(f"{E} experts / d_ff {m.d_ff} on a "
+                         f"{n_data} x {n_model} mesh")
+    E_loc, ff_loc = E // n_data, m.d_ff // n_model
+    T = B * S
+    C = max(8, int(math.ceil(m.capacity_factor * K * T / E / 8)) * 8)
+    es, cols = slice(r * E_loc, (r + 1) * E_loc), \
+        slice(j * ff_loc, (j + 1) * ff_loc)
+    wg = _whole(p["w_gate"])[es, :, cols].to(x.dtype)
+    wu = _whole(p["w_up"])[es, :, cols].to(x.dtype)
+    wd = _whole(p["w_down"])[es, cols, :].to(x.dtype)
+
+    xf = x.reshape(T, d)
+    top_p, top_e, aux = _route_local(cfg, p, xf, mesh, batch_axes)
+    flat_e, flat_t, flat_w = _flat_choices(top_p, top_e, x.dtype)
+    # slots (destination rank, local expert, c), flattened
+    tok, w_slot, _ = _slot_tables(flat_e, flat_t, flat_w, E, E, C, T)
+    xpad = torch.cat([xf, torch.zeros((1, d), dtype=x.dtype,
+                                      device=x.device)])
+    send = xpad[tok].reshape(n_data, E_loc * C, d)
+    recv = _AllToAll.apply(send, group)              # [n_data(src), ...]
+    expert_in = recv.reshape(n_data, E_loc, C, d).transpose(0, 1) \
+        .reshape(E_loc, n_data * C, d)
+    out = _ffn(cfg, expert_in, wg, wu, wd)           # [E_loc, n_data*C, d]
+    back = out.reshape(E_loc, n_data, C, d).transpose(0, 1) \
+        .reshape(n_data, E_loc * C, d)
+    ret = _AllToAll.apply(back, group)               # my slots again
+    y = _combine(ret, w_slot, tok, T)
+    y = _SumOverGroups.apply(y, [mesh.get_group(model_axis)], 1.0)
     return y.reshape(B, S, d), aux
 
 

@@ -33,6 +33,7 @@ from . import moe as M
 from . import rwkv as R
 from . import ssm as SSM
 from .config import LMConfig
+from .sharding_ctx import constrain
 
 # --------------------------------------------------------------------------
 # group layout
@@ -167,7 +168,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
         else:
             a, _ = L.attn_forward(cfg, p["attn"], h, freqs,
                                   window=_kind_window(cfg, kind), cache=cache)
-        x = x + a
+        x = constrain(x + a, "res")
         h = L.apply_norm(cfg, p["ln2"], x)
         aux = None
         if kind.startswith("moe:"):
@@ -176,13 +177,13 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
                 y = y + L.mlp_forward(cfg, p["mlp"], h)
         else:
             y = L.mlp_forward(cfg, p["mlp"], h)
-        return x + y, aux
+        return constrain(x + y, "res"), aux
     if kind == "rwkv":
         st_tm = None if cache is None else \
             {"wkv": cache["wkv"], "shift": cache["shift_tm"]}
         h = L.apply_norm(cfg, p["ln1"], x)
         a, new_tm = R.rwkv_time_mix(cfg, p["tm"], h, st_tm)
-        x = x + a
+        x = constrain(x + a, "res")
         st_cm = None if cache is None else {"shift": cache["shift_cm"]}
         h = L.apply_norm(cfg, p["ln2"], x)
         y, new_cm = R.rwkv_channel_mix(cfg, p["cm"], h, st_cm)
@@ -190,7 +191,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
             _copy_into(cache, {"wkv": new_tm["wkv"],
                                "shift_tm": new_tm["shift"],
                                "shift_cm": new_cm["shift"]})
-        return x + y, None
+        return constrain(x + y, "res"), None
     if kind == "mamba":
         st = None if cache is None else {"ssm": cache["ssm"],
                                          "conv": cache["conv"]}
@@ -198,21 +199,21 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
         y, new_st = SSM.mamba_forward(cfg, p["mamba"], h, st)
         if cache is not None:
             _copy_into(cache, new_st)
-        return x + y, None
+        return constrain(x + y, "res"), None
     if kind == "dec_attn":
         h = L.apply_norm(cfg, p["ln1"], x)
         a, _ = L.attn_forward(cfg, p["attn"], h, freqs, window=None,
                               cache=cache)
-        x = x + a
+        x = constrain(x + a, "res")
         h = L.apply_norm(cfg, p["ln_x"], x)
         if cache is not None:
             xa = _cross_attn_cached(cfg, p["xattn"], h, cache["xk"],
                                     cache["xv"])
         else:
             xa = _cross_attn(cfg, p["xattn"], h, enc_out)
-        x = x + xa
+        x = constrain(x + xa, "res")
         h = L.apply_norm(cfg, p["ln2"], x)
-        return x + L.mlp_forward(cfg, p["mlp"], h), None
+        return constrain(x + L.mlp_forward(cfg, p["mlp"], h), "res"), None
     raise ValueError(f"unknown block kind {kind!r}")
 
 

@@ -17,6 +17,11 @@ Layout of one checkpoint, the reference's (``repro.train.checkpoint``):
 * **Elastic**: arrays are saved in host layout; ``restore`` places them
   on ``device`` or through the caller's ``place`` hook.
 * **Cursor**: the data-pipeline cursor rides in the manifest's ``extra``.
+* **Sharded state**: a ``DTensor`` leaf (a mesh run, one process per
+  rank) is saved as its whole tensor -- every rank takes part in the
+  gather, rank 0 alone writes -- and restored into a ``DTensor``
+  template with the template's placements, so a mesh run and a
+  one-device run of either package restore each other's checkpoints.
 
 Leaves are numbered in the reference's order (``tree.flatten``: dict keys
 sorted, tuples in order, ``None`` dropped), so a checkpoint written by
@@ -39,9 +44,20 @@ from ..engine.adaptive import resolve_device
 from .tree import describe, flatten, unflatten
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the process
+    group, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host(leaf: torch.Tensor) -> np.ndarray:
     """A leaf as a host array; bfloat16 as ``ml_dtypes.bfloat16`` (the
-    reference's numpy type for it), carried bit for bit."""
+    reference's numpy type for it), carried bit for bit.  A ``DTensor``
+    is gathered whole first (a collective of every rank)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes          # numpy's bfloat16, needed only here
@@ -76,6 +92,8 @@ def _write(ckpt_dir, step, host_leaves, treedef, extra) -> str:
     name = f"step_{step:09d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
     final = os.path.join(ckpt_dir, name)
+    if not _writer():
+        return final
     os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
     for i, a in enumerate(host_leaves):
         with open(os.path.join(tmp, "arrays", f"{i}.npy"), "wb") as f:
@@ -133,15 +151,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def _tensor(a: np.ndarray, tmpl: torch.Tensor, device) -> torch.Tensor:
     """A host array as a tensor of the template leaf's dtype on
-    ``device``.  bfloat16 comes from its bits: ``np.save`` writes an
+    ``device``, or as a ``DTensor`` of a ``DTensor`` template's
+    placements.  bfloat16 comes from its bits: ``np.save`` writes an
     ``ml_dtypes.bfloat16`` array as two-byte voids."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
     a = np.asarray(a, order="C")            # keeps a 0-d leaf 0-d
     if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
                                       and a.dtype.itemsize == 2):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=tmpl.dtype)
+    t = t.to(device=device, dtype=tmpl.dtype)
+    if isinstance(tmpl, DTensor):
+        return distribute_tensor(t, tmpl.device_mesh, tmpl.placements,
+                                 src_data_rank=None)
+    return t
 
 
 def restore(ckpt_dir: str, template,
@@ -179,7 +203,7 @@ def restore(ckpt_dir: str, template,
 
 def gc_checkpoints(ckpt_dir: str, keep: int = 3) -> None:
     """Delete all but the newest ``keep`` complete checkpoints."""
-    if not os.path.isdir(ckpt_dir):
+    if not _writer() or not os.path.isdir(ckpt_dir):
         return
     steps = sorted(
         int(n.split("_")[1]) for n in os.listdir(ckpt_dir)

@@ -27,7 +27,7 @@ from ..models import loss_fn
 from ..models.config import LMConfig
 from .compress import ef_compress_tree, ef_init
 from .optim import Optimizer, clip_by_global_norm
-from .tree import flatten, unflatten
+from .tree import flatten, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,11 +42,23 @@ class TrainCfg:
 
 
 def make_train_step(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer,
-                    lr_fn: Callable):
+                    lr_fn: Callable, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params", "opt", "step"}  (plus "ef" when compressing).
     batch = {"tokens": [B, S+1], ...modality extras}.
+
+    With ``mesh`` (a ``DeviceMesh``; one process per rank) every state
+    leaf is a ``DTensor`` placed by ``launch.sharding.state_shardings``
+    and every batch entry a ``DTensor`` sharded over the batch axes
+    (``launch.sharding.place_tree``).  The step is FSDP over those
+    placements: it gathers the params (``full_tensor``), takes the
+    gradients of its own batch rows, sums them over the batch axes into
+    each param's placement (a reduce-scatter where the param is sharded
+    over a batch axis, an all-reduce where it is not; the ranks of one
+    batch block compute the same gradient), and updates the sharded
+    state with DTensor's elementwise ops.  Loss and metrics are the
+    means over the batch blocks (the global batch split evenly).
     """
 
     def grads_of(params, batch):
@@ -81,7 +93,11 @@ def make_train_step(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer,
 
     def train_step(state, batch):
         params = state["params"]
-        loss, metrics, grads = accumulate(params, batch)
+        if mesh is None:
+            loss, metrics, grads = accumulate(params, batch)
+        else:
+            loss, metrics, grads = _mesh_grads(mesh, accumulate, params,
+                                               batch)
         if tcfg.compress_grads:
             grads, ef = ef_compress_tree(grads, state["ef"])
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
@@ -96,6 +112,35 @@ def make_train_step(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer,
         return new_state, metrics
 
     return train_step
+
+
+def _mesh_grads(mesh, accumulate, params, batch):
+    """(loss, metrics, grads) of the global batch on a mesh: the
+    gradients of this rank's rows, summed over the batch axes into each
+    param's placement (``make_train_step``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    local = {k: v.to_local() for k, v in batch.items()}
+    rows = next(iter(batch.values()))
+    # the mesh dims the batch rows are split over; the other ranks of a
+    # block hold the same rows and compute the same gradient
+    split = [i for i, pl in enumerate(rows.placements) if pl.is_shard(0)]
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    over = [Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)]
+
+    def total(t, scale):
+        return DTensor.from_local(t * scale, mesh, over).full_tensor()
+
+    full = tree_map(lambda p: p.full_tensor(), params)
+    loss, metrics, grads = accumulate(full, local)
+    grads = tree_map(lambda g, p: DTensor.from_local(
+        g / n, mesh, over).redistribute(mesh, p.placements), grads, params)
+    metrics = {k: total(v, 1.0 if k == "tokens" else 1.0 / n)
+               for k, v in metrics.items()}
+    return total(loss, 1.0 / n), metrics, grads
 
 
 def init_state(cfg: LMConfig, tcfg: TrainCfg, opt: Optimizer, params):

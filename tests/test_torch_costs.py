@@ -428,10 +428,26 @@ def test_dryrun_skips_long_500k_for_full_attention():
 @pytest.mark.parametrize("flags", [["--mesh", "multi"], ["--mesh", "both"],
                                    ["--seq-parallel"], ["--moe-alltoall"],
                                    ["--cluster"]])
-def test_dryrun_refuses_several_cards(flags, capsys):
-    assert dryrun.main(["--arch", "qwen2-1.5b", "--device", "cpu",
-                        *flags]) != 0
-    assert "ROADMAP A18" in capsys.readouterr().err
+def test_dryrun_refuses_several_cards(flags, tmp_path, capsys):
+    """The mesh flags count one rank of the production meshes over a
+    fake process group (records ``mesh`` 16x16 / 2x16x16, collectives
+    counted); ``--cluster`` still exits != 0 with its reason."""
+    out = tmp_path / "d.json"
+    rc = dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                      "--device", "cpu", "--out", str(out), *flags])
+    if flags == ["--cluster"]:
+        assert rc != 0
+        assert "fake tensors" in capsys.readouterr().err
+        return
+    assert rc == 0
+    recs = json.loads(out.read_text())
+    want = {"multi": ["2x16x16"], "both": ["16x16", "2x16x16"]}.get(
+        flags[-1], ["16x16"])
+    assert [r["mesh"] for r in recs] == want
+    for r in recs:
+        assert r["status"] == "ok" and r["chips"] in (256, 512)
+        assert r["collective_bytes_per_chip"]["all-gather"] > 0
+        assert r["param_bytes_per_rank"] < r["memory"]["argument_size"]
 
 
 def test_dryrun_without_a_device_needs_the_card(monkeypatch):
