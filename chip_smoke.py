@@ -135,7 +135,14 @@ result line) as soon as a phase fails:
            ``dryrun``, ``dryrun.run_cell`` of qwen2-1.5b x train_4k on
            16 x 16 and 2 x 16 x 16 and of mixtral-8x7b x decode_32k with
            ``moe_alltoall`` on 16 x 16 over a fake process group: per-rank
-           param bytes equal to ``param_pspec``'s, collectives counted
+           param bytes equal to ``param_pspec``'s, collectives counted;
+           and ``dryrun.run_cluster_cell`` on both meshes: rank 1's
+           distributed GriT-DBSCAN step on a seeded 4,096-point shard on
+           the card (kernel plane, caps grown until the report is clean),
+           counted: the counted permute equal to the bytes the halo
+           exchange sent, collectives counted, each distance kernel's
+           counted FLOPs equal to 3·d per (row, candidate) slot summed
+           over its counted calls, both kernels launched
   guard_band  the two guard-band kernels (the same warp-per-task kernel
            as the distance kernels, kinds band and min2) against their
            plain versions on the largest kernel-mode predict call, on the
@@ -269,7 +276,8 @@ Each phase that drives a path of the port sets the kernels' launch
 counts to 0 just before it and reads them just after; the summary's
 ``launches`` is the sum over the fit's cold run, the serve phase, the
 server phase, the sharded phase, the mesh phase (its ranks' counts,
-each read in the rank's own process), the lm phase, the families phase
+each read in the rank's own process, and the cluster dry run's), the lm
+phase, the families phase
 and the train phase (which must launch none); phases syncs and cost drive
 no new path (their runs count in ``launches_script`` only).
 
@@ -2339,6 +2347,75 @@ def _mesh_dryrun(dev):
     return recs
 
 
+def _mesh_dryrun_cluster(dev):
+    """The cluster step's dry-run records on the card (rank 1 of 16 x 16
+    and 2 x 16 x 16, kernel plane): (the records' lines, the launches of
+    the part).  Each distance kernel's counted FLOPs must equal 3·d per
+    (row, candidate) slot summed over the calls made under the
+    accountant."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs
+    from repro_torch.launch.dryrun import run_cluster_cell
+    names = ("eps_count_batch", "row_min_batch")
+    real = {k: getattr(ops, k) for k in names}
+    shapes = {k: [] for k in names}
+
+    def keeping(name):
+        def call(a, b, *args, **kw):
+            if any(isinstance(m, costs.CostMode)
+                   for m in _get_current_dispatch_mode_stack()):
+                shapes[name].append((*a.shape, b.shape[1]))
+            return real[name](a, b, *args, **kw)
+        return call
+
+    before = dict(ops.LAUNCHES)
+    lines = []
+    for name in names:
+        setattr(ops, name, keeping(name))
+    try:
+        for mp in (False, True):
+            for v in shapes.values():
+                v.clear()
+            rec = run_cluster_cell(mp, device=dev)
+            tag = f"mesh/dryrun: grit-cluster-step x {rec['mesh']}"
+            require(rec["status"] == "ok" and rec["attempts"][-1] == (),
+                    f"{tag}: {rec['status']}, trail {rec['attempts']}")
+            coll = rec["collective_bytes_per_chip"]
+            require(coll.get("collective-permute") == rec["sent"]["exchange"]
+                    > 0, f"{tag}: permute {coll} != sent {rec['sent']}")
+            require(rec["roofline"]["t_collective"] > 0,
+                    f"{tag}: counted no collective")
+            require(rec["caps"]["use_kernels"], f"{tag}: plain plane")
+            kernels = {}
+            for name in names:
+                live = [(B, M, d, N) for B, M, d, N in shapes[name] if B * M]
+                formula = sum(3.0 * d * B * M * N for B, M, d, N in live)
+                got = rec["kernel_ops"].get(f"repro_torch.{name}",
+                                            {"calls": 0, "flops": 0.0})
+                require(got["calls"] == len(live) > 0 and
+                        got["flops"] == formula,
+                        f"{tag}: {name}: {got} counted, {len(live)} calls "
+                        f"with rows, {formula} FLOPs by the formula")
+                kernels[name] = dict(calls=len(live), formula_flops=formula,
+                                     counted_flops=got["flops"],
+                                     bytes=got["bytes"])
+            lines.append({**{k: rec[k] for k in (
+                "arch", "shape", "mesh", "kind", "chips", "rank", "caps",
+                "attempts", "halo_live", "sent", "core_points",
+                "collective_bytes_per_chip", "flops_per_chip",
+                "bytes_per_chip", "kernel_flops", "roofline", "lower_s",
+                "compile_s", "fake_group", "ghosts")}, "kernels": kernels})
+    finally:
+        for name in names:
+            setattr(ops, name, real[name])
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    for name in names:
+        require(launches[name] > 0, f"mesh/dryrun: the cluster records "
+                f"never launched {name}")
+    return lines, launches
+
+
 def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
     """Phase ``mesh``: one line a part (module docstring).  Returns the
     mesh path's launches: the gloo ranks' cold fits and the NCCL
@@ -2447,7 +2524,11 @@ def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
          script_s=time.perf_counter() - t_script)
     t0 = time.perf_counter()
     recs = _mesh_dryrun(dev)
-    emit("mesh", part="dryrun", card=smi, records=recs,
+    cluster, cluster_launches = _mesh_dryrun_cluster(dev)
+    for k, v in cluster_launches.items():
+        launches[k] += v
+    emit("mesh", part="dryrun", card=smi, records=recs, cluster=cluster,
+         cluster_launches=cluster_launches,
          seconds=time.perf_counter() - t0,
          script_s=time.perf_counter() - t_script)
     return launches

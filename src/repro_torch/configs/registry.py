@@ -9,6 +9,7 @@ reference's registry; an unknown arch raises ``ValueError``.
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 ARCHS = [
     "rwkv6_3b", "mixtral_8x7b", "arctic_480b", "qwen2_1_5b", "stablelm_3b",
@@ -25,6 +26,10 @@ def canonical(arch: str) -> str:
             return a
     # tolerate ids like 'qwen1.5-0.5b' -> 'qwen1_5_0_5b'
     return norm
+
+
+def list_archs() -> List[str]:
+    return list(ARCHS)
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -72,11 +72,14 @@ def shard_comm(devices: Optional[Sequence] = None, mesh=None, device=None):
 
 
 def make_staged_cluster_steps(devices: Optional[Sequence], eps, min_pts: int,
-                              caps: ClusterCaps, *, mesh=None, device=None):
+                              caps: ClusterCaps, *, mesh=None, device=None,
+                              comm=None):
     """The cluster step as its three stages, over shard ``s`` on
-    ``devices[s]``, or over this rank's shard of ``mesh`` on ``device``.
-    Every argument and result is a list with one tensor per shard this
-    process holds, on that shard's device.
+    ``devices[s]``, or over this rank's shard of ``mesh`` on ``device``,
+    or over the shards of ``comm`` (moves built by the caller, such as
+    the dry run's over a fake process group).  Every argument and result
+    is a list with one tensor per shard this process holds, on that
+    shard's device.
 
     Returns ``(halo_fn, local_fn, reconcile_fn, comm)``:
 
@@ -92,7 +95,8 @@ def make_staged_cluster_steps(devices: Optional[Sequence], eps, min_pts: int,
     ``points[i]`` is ``[n, d]`` float32, ``valid[i]`` ``[n]`` bool,
     with one ``n`` for every shard (the packed slab width).
     """
-    comm = shard_comm(devices, mesh, device)
+    if comm is None:
+        comm = shard_comm(devices, mesh, device)
     shards = comm.shards
     n_shards = comm.n_shards
     last = n_shards - 1
@@ -168,7 +172,8 @@ def make_staged_cluster_steps(devices: Optional[Sequence], eps, min_pts: int,
 
 
 def make_cluster_step(devices: Optional[Sequence], eps, min_pts: int,
-                      caps: ClusterCaps, *, mesh=None, device=None):
+                      caps: ClusterCaps, *, mesh=None, device=None,
+                      comm=None):
     """The three stages of :func:`make_staged_cluster_steps` chained.
 
     Returns ``fn(points, valid) -> (labels, core, point_grid, report)``:
@@ -178,7 +183,7 @@ def make_cluster_step(devices: Optional[Sequence], eps, min_pts: int,
     over every shard.
     """
     halo_fn, local_fn, reconcile_fn, comm = make_staged_cluster_steps(
-        devices, eps, min_pts, caps, mesh=mesh, device=device)
+        devices, eps, min_pts, caps, mesh=mesh, device=device, comm=comm)
 
     def cluster_step(points, valid):
         gl, gr, lo_idx, hi_idx, hov = halo_fn(points, valid)

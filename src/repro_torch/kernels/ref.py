@@ -129,6 +129,14 @@ def row_min2_batch(a: torch.Tensor, b: torch.Tensor,
     return mins, d2_wo.min(dim=-1).values, idx
 
 
+def min_dist(a: torch.Tensor, va: torch.Tensor,
+             b: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """Minimum squared distance between two masked sets (0-d float32;
+    inf when no valid pair exists)."""
+    d2 = torch.where(va[:, None] & vb[None, :], sq_dists(a, b), torch.inf)
+    return d2.min()
+
+
 def masked_logits(q: torch.Tensor, k: torch.Tensor, *, q_offset: int,
                   causal: bool, window: Optional[int],
                   softcap: Optional[float], scale: float

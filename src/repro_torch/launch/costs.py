@@ -34,7 +34,10 @@ allocated) and counts, as ``hlo_costs.analyze`` does:
   byte rule above (q / k / v or a / b and the masks read once, the
   outputs written once);
 * collectives: the ``_c10d_functional`` ops, at the wire factors of
-  ``launch/roofline.py``;
+  ``launch/roofline.py``; a point-to-point ``c10d::send`` (the halo
+  exchange's ``batch_isend_irecv``) as ``collective-permute`` at wire
+  factor 1, on the sending side only: a receive (``c10d::recv_``)
+  writes its buffer and moves no wire bytes of its own;
 * a ``DTensor`` operator is counted as the operators it runs on its
   local shard and the collectives it sends: the count of a mesh run
   is per rank.
@@ -76,7 +79,7 @@ _GATHER = {"aten::index", "aten::gather", "aten::index_select",
 # they write their mutated argument without reading it
 _OVERWRITE = {"aten::copy_", "aten::fill_", "aten::zero_", "aten::normal_",
               "aten::uniform_", "aten::random_", "aten::bernoulli_",
-              "aten::exponential_"}
+              "aten::exponential_", "c10d::recv_"}
 # they write part of their mutated argument: written elements from the
 # update, and read them too when they accumulate
 _SCATTER = {"aten::index_put_", "aten::_index_put_impl_", "aten::scatter_",
@@ -88,6 +91,7 @@ _C10D = {"_c10d_functional::all_reduce": "all-reduce",
          "_c10d_functional::all_gather_into_tensor": "all-gather",
          "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
          "_c10d_functional::all_to_all_single": "all-to-all"}
+_SEND = "c10d::send"
 _SDPA = {"aten::_scaled_dot_product_flash_attention",
          "aten::_scaled_dot_product_flash_attention_for_cpu",
          "aten::_scaled_dot_product_efficient_attention",
@@ -277,6 +281,11 @@ class CostMode(TorchDispatchMode):
             size = _dense_bytes(fresh[0]) if fresh else 0
             self.coll[kind] += wire_bytes(kind, size, _group_size(bound))
             return 0.0, "f32", _distinct_bytes(args[0]) + outs
+        if name == _SEND:
+            sent = sum(map(_dense_bytes, inputs))
+            self.coll["collective-permute"] += wire_bytes(
+                "collective-permute", sent, 2)
+            return 0.0, "f32", sum(map(_distinct_bytes, inputs))
         dot = _dot_flops(name, args, fresh[0]) if fresh else None
         if dot is not None:
             self.dot_flops += dot

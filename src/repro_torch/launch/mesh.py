@@ -12,8 +12,9 @@ process group that exists, one process per rank:
 
 Every mesh is made by a function call, never at import.  The dry run
 makes its production meshes over a fake process group
-(:func:`fake_world`): one process plays rank 0 of 256 or 512, the
-collectives are recorded and move nothing.
+(:func:`fake_world`): one process plays one rank of 256 or 512 (rank 0
+unless it asks for another), the collectives are recorded and move
+nothing.
 
 The helpers also take the reference tests' stand-in mesh, any object
 with ``axis_names`` and a ``shape`` dict, so the spec builders of
@@ -129,15 +130,15 @@ def init_world(backend: str, *, device=None, store_path: Optional[str] = None,
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
+def fake_world(world_size: int, rank: int = 0):
     """A fake process group of ``world_size`` ranks in this process
-    (rank 0), for the dry run: collectives are recorded, not run.  The
-    group is destroyed on exit."""
+    (playing ``rank``), for the dry run: collectives are recorded, not
+    run.  The group is destroyed on exit."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("a process group already exists")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield

@@ -431,16 +431,23 @@ def test_dryrun_skips_long_500k_for_full_attention():
 def test_dryrun_refuses_several_cards(flags, tmp_path, capsys):
     """The mesh flags count one rank of the production meshes over a
     fake process group (records ``mesh`` 16x16 / 2x16x16, collectives
-    counted); ``--cluster`` still exits != 0 with its reason."""
+    counted); ``--cluster`` counts rank 1 of the cluster step on 16x16
+    (``--arch`` / ``--shape`` play no part in it)."""
     out = tmp_path / "d.json"
     rc = dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
                       "--device", "cpu", "--out", str(out), *flags])
-    if flags == ["--cluster"]:
-        assert rc != 0
-        assert "fake tensors" in capsys.readouterr().err
-        return
     assert rc == 0
     recs = json.loads(out.read_text())
+    if flags == ["--cluster"]:
+        (r,) = recs
+        assert r["status"] == "ok" and r["kind"] == "cluster"
+        assert r["mesh"] == "16x16" and r["chips"] == 256
+        assert r["attempts"][-1] == []
+        coll = r["collective_bytes_per_chip"]
+        assert coll["collective-permute"] == r["sent"]["exchange"] > 0
+        assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+        assert "grit-cluster-step x 16x16 bound=" in capsys.readouterr().out
+        return
     want = {"multi": ["2x16x16"], "both": ["16x16", "2x16x16"]}.get(
         flags[-1], ["16x16"])
     assert [r["mesh"] for r in recs] == want
