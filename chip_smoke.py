@@ -132,6 +132,25 @@ result line) as soon as a phase fails:
            (``reduced``), float32, on the NCCL mesh with DTensor state:
            two steps of 8 x 512 tokens equal to two single-device steps
            (loss within 1e-4, params within rtol 2e-4 + atol 1e-5);
+           ``tp``, tensor-parallel compute on the gloo 2 x 2 mesh (in the
+           fit's spawn): qwen2-1.5b at its published width, 2 of 28
+           layers, two float32 TP train steps of 8 x 512 tokens against
+           two single-device steps: the losses within 1e-4, the first
+           step's gradients within 1e-4 of each leaf's largest |g|, the
+           params after both steps within rtol 2e-4 + atol 1e-5 on every
+           entry whose first-step |g| exceeds 1e-5 (AdamW normalises each
+           entry, so one whose gradient is near 0 moves by up to lr with
+           the summation order); a bfloat16 prefill of 4 x 2,048 tokens
+           plus 4 decode steps with the flash kernel on each rank's 6
+           local heads and 1 KV head, the ranks' last-position logits
+           within 3e-2 of the largest |logit| of a single-device run with
+           plain attention; per rank the step and prefill seconds, the
+           bytes each move sent, the peak memory, and flash at a rank's
+           own call [2, 6 (1 KV), 2,048, 2,048, 128] (the 4 prompts split
+           over 'data') timed in turns against its bound and SDPA's time
+           (the flash launches of the TP prefills are the path's, counted
+           in each rank with the counts set to 0 just before its
+           prefill);
            ``dryrun``, ``dryrun.run_cell`` of qwen2-1.5b x train_4k on
            16 x 16 and 2 x 16 x 16 and of mixtral-8x7b x decode_32k with
            ``moe_alltoall`` on 16 x 16 over a fake process group: per-rank
@@ -307,6 +326,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -2108,6 +2128,22 @@ MESH_MOE_ARCH = "mixtral-8x7b"
 MESH_MOE_TOKENS = (4, 256)      # the MoE block's input, batch x sequence
 MESH_TRAIN_LAYERS = 2           # qwen2-1.5b's 28 layers cut to 2
 MESH_TRAIN_TOKENS = (8, 512)
+MESH_TP_PROMPT = (4, 2048)      # part tp's bf16 prefill, batch x sequence
+MESH_TP_DECODE = 4
+MESH_TP_LOGIT_TOL = 3e-2        # of the largest |logit|, bf16
+# a float32 gradient leaf's distance from the single-device one, as a share
+# of its largest |g| (tests/test_torch_train.py's float32 tolerance)
+MESH_TP_GRAD_TOL = 1e-4
+# the params after two AdamW steps are held at rtol 2e-4 + atol 1e-5 on
+# every entry whose first-step |g| exceeds this floor: AdamW divides each
+# gradient entry by its own magnitude, so an entry whose gradient is near
+# 0 moves by up to lr in a direction the summation order decides
+MESH_TP_PARAM_GRAD_FLOOR = 1e-5
+# a rank's own flash call in the TP prefill on the 2 x 2 mesh: its half of
+# the prompts (the batch split over 'data'), 6 of qwen2's 12 heads, 1 of
+# its 2 KV heads (batch, heads, KV heads, Sq, Sk, head dim)
+MESH_TP_FLASH = (MESH_TP_PROMPT[0] // 2, 6, 1, MESH_TP_PROMPT[1],
+                 MESH_TP_PROMPT[1], 128)
 
 
 def _mesh_moe_case(dtype, dev, seed):
@@ -2188,11 +2224,228 @@ def _mesh_fit_rank(mesh, dev, pts, eps, caps):
 
 def mesh_gloo_rank(rank, world, dev, pts_path, eps, caps, seed):
     """One of ``MESH_RANKS`` gloo ranks on the card (a 2 x 2 mesh): the
-    fit, then the MoE variants."""
+    fit, the MoE variants, then tensor-parallel compute (part tp)."""
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(2, "cuda")
     out = {"fit": _mesh_fit_rank(mesh, dev, np.load(pts_path), eps, caps)}
     out["moe"] = _mesh_moe_rank(mesh, dev, seed)
+    torch.cuda.empty_cache()
+    out["tp"] = _mesh_tp_rank(mesh, dev, seed)
+    return out
+
+
+def _tp_cfg(dtype, flash=False):
+    from repro_torch.launch.specs import model_cfg_for
+    return model_cfg_for(TRAIN_ARCH).with_overrides(
+        num_layers=MESH_TRAIN_LAYERS, dtype=dtype, remat=False,
+        use_flash_kernel=flash)
+
+
+def _sent():
+    from repro_torch.dist import comm
+    from repro_torch.models import tensor_parallel as tp
+    return {**{f"tp.{k}": v for k, v in tp.SENT.items()},
+            **{f"comm.{k}": v for k, v in comm.SENT.items()}}
+
+
+def _zero_sent():
+    from repro_torch.dist import comm
+    from repro_torch.models import tensor_parallel as tp
+    for d in (tp.SENT, comm.SENT):
+        d.update(dict.fromkeys(d, 0))
+
+
+def _tp_train(mesh, dev, seed):
+    """qwen2-1.5b (``MESH_TRAIN_LAYERS`` layers, float32) on ``mesh``:
+    the TP step's gradients of the first batch (``train.step``'s mesh
+    gradients, gathered), then two TP train steps; on rank 0 the same on
+    one device, the gradients' and the losses' distance from them, and
+    the params' after the two steps: how far each leaf's worst entry
+    lies outside rtol 2e-4 + atol 1e-5, how many entries do, and the
+    largest first-step |g| among them."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import init_params
+    from repro_torch.train import (TrainCfg, get_optimizer, init_state,
+                                   make_train_step)
+    from repro_torch.train.step import _mesh_grads, grads_of
+    cfg = _tp_cfg("float32")
+    tcfg, opt = TrainCfg(), get_optimizer("adamw", weight_decay=0.0)
+    B, S = MESH_TRAIN_TOKENS
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0)
+    batches = [{"tokens": torch.as_tensor(pipe.next_batch()["tokens"]).to(
+        device=dev, dtype=torch.int32)} for _ in range(2)]
+
+    def run(mesh_):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed + 130_000), dev)
+        state = init_state(cfg, tcfg, opt, params)
+        step = make_train_step(cfg, tcfg, opt, lambda s: 1e-3, mesh=mesh_)
+        if mesh_ is None:
+            grads = grads_of(cfg, params, batches[0])[2]
+        else:
+            state = shd.place_tree(state, shd.state_shardings(cfg, mesh_,
+                                                              state))
+            grads = shd.gather_tree(_mesh_grads(
+                cfg, mesh_, lambda p, b: grads_of(cfg, p, b),
+                state["params"], shd.place_tree(
+                    batches[0], shd.batch_shardings(cfg, mesh_,
+                                                    batches[0])))[2])
+        grads = shd.keyed_leaves(grads)[0]
+        losses, secs, sent = [], [], []
+        for b in batches:
+            if mesh_ is not None:
+                b = shd.place_tree(b, shd.batch_shardings(cfg, mesh_, b))
+            _zero_sent()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            sent.append(_sent())
+        params = state["params"]
+        if mesh_ is not None:
+            params = shd.gather_tree(params)
+        return losses, secs, sent, grads, shd.keyed_leaves(params)[0]
+
+    ml, ms, sent, mg, mp = run(mesh)
+    out = dict(losses_tp=ml, step_s_tp=ms, sent_bytes=sent)
+    if dist.get_rank() == 0:
+        sl, ss, _, sg, sp = run(None)
+        grad_err = {k: float((a - b).abs().max() / b.abs().max())
+                    for (k, a), (_, b) in zip(mg, sg)}
+        excess, outside, g_outside = {}, 0, 0.0
+        for (k, a), (_, b), (_, g) in zip(mp, sp, sg):
+            over = (a - b).abs() - (1e-5 + 2e-4 * b.abs())
+            excess[k] = float(over.max())
+            if excess[k] > 0:
+                outside += int((over > 0).sum())
+                g_outside = max(g_outside, float(g[over > 0].abs().max()))
+        worst = max(excess, key=excess.get)
+        out.update(losses_one=sl, step_s_one=ss,
+                   loss_err=max(abs(a - b) for a, b in zip(ml, sl)),
+                   grad_rel_err=max(grad_err.values()),
+                   grad_worst_leaf=max(grad_err, key=grad_err.get),
+                   param_max_abs_err=max(float((a - b).abs().max())
+                                         for (_, a), (_, b) in zip(mp, sp)),
+                   param_tolerance_excess=excess[worst],
+                   param_worst_leaf=worst,
+                   params_outside=outside,
+                   params=sum(b.numel() for _, b in sp),
+                   grad_max_abs_outside=g_outside)
+        del sp, sg
+    del mp, mg
+    dist.barrier()
+    return out
+
+
+def _tp_serve(mesh, dev, seed):
+    """qwen2-1.5b (``MESH_TRAIN_LAYERS`` layers, bf16, flash on): this
+    rank's rows of a ``MESH_TP_PROMPT`` prefill plus ``MESH_TP_DECODE``
+    decode steps under tensor parallelism, from a cache ``init_cache``
+    made under the TP context, its flash calls' shapes and launches;
+    rank 0 then runs every row on one device with plain attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill, sharding_ctx)
+    from repro_torch.models import tensor_parallel as tp
+    cfg = _tp_cfg("bfloat16", flash=True)
+    B, S = MESH_TP_PROMPT
+    rng = np.random.default_rng(seed + 131_000)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (MESH_TP_DECODE, B)),
+                           dtype=torch.int32, device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed + 132_000), dev)
+    placed = shd.place_tree(params, shd.param_shardings(cfg, mesh, params))
+    n_data, r = mesh.size(0), mesh.get_local_rank("data")
+    rows = slice(r * B // n_data, (r + 1) * B // n_data)
+    shapes = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        shapes.append([*q.shape, k.shape[1]])
+        return real(q, k, v, **kw)
+
+    def serve(cfg, p, rows_):
+        cache = init_cache(cfg, prompt[rows_].shape[0], S + MESH_TP_DECODE,
+                           dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, p, {"tokens": prompt[rows_]}, cache)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        got = [logits.float().cpu().numpy()]
+        t0 = time.perf_counter()
+        for t in toks:
+            logits, cache = decode_step(cfg, p, t[rows_], cache)
+            got.append(logits.float().cpu().numpy())
+        return got, pre_s, (time.perf_counter() - t0) / MESH_TP_DECODE, \
+            cache["slots"][0]["k"].shape[2]
+
+    _zero_sent()
+    with torch.no_grad(), sharding_ctx.tensor_parallel((mesh, "model")):
+        local = tp.local_params(cfg, placed)
+        ops.flash_attention = spy
+        ops.reset_launches()
+        try:
+            got, pre_s, dec_s, heads = serve(cfg, local, rows)
+        finally:
+            ops.flash_attention = real
+        launches = dict(ops.LAUNCHES)
+    out = dict(rows=[rows.start, rows.stop], logits=got, prefill_s=pre_s,
+               decode_step_s=dec_s, cache_kv_heads=heads,
+               flash_shapes=shapes, launches=launches, sent_bytes=_sent())
+    del local
+    if dist.get_rank() == 0:
+        with torch.no_grad():
+            one, one_pre, one_dec, _ = serve(
+                cfg.with_overrides(use_flash_kernel=False), params,
+                slice(0, B))
+        out.update(one_logits=one, one_prefill_s=one_pre,
+                   one_decode_step_s=one_dec)
+    dist.barrier()
+    return out
+
+
+def _tp_flash(dev, seed):
+    """Flash at a rank's local-head shape ``MESH_TP_FLASH``, timed in
+    turns (one rank on the card at a time), its bound and SDPA's time."""
+    from repro_torch.kernels import ops
+    B, H, Hkv, Sq, Sk, D = MESH_TP_FLASH
+    gen = torch.Generator(device=dev).manual_seed(seed + 133_000)
+    q, k, v = (torch.randn((B, h, Sq, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    nbytes = 2.0 * 2 * B * (H * Sq + Hkv * Sk) * D
+    nops = 4.0 * D * B * H * ops.live_pairs(Sq, Sk, True, None)
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_BF16_OPS_S * 1e3
+    lib = sdpa_call(q, k, v, True, None, None)
+    out = {}
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn == dist.get_rank():
+            out = dict(shape=[B, H, Sq, Sk, D], kv_heads=Hkv,
+                       ms=cuda_ms(lambda: ops.flash_attention(q, k, v)),
+                       library_ms=cuda_ms(lib), bound_ms=max(tb, to),
+                       bound_by="bytes" if tb >= to else "operations")
+        torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def _mesh_tp_rank(mesh, dev, seed):
+    """Part tp on this rank: the TP train steps, the TP prefill and
+    decode, flash at the local-head shape, the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    out = {"train": _tp_train(mesh, dev, seed)}
+    torch.cuda.empty_cache()
+    out["serve"] = _tp_serve(mesh, dev, seed)
+    torch.cuda.empty_cache()
+    out["flash"] = _tp_flash(dev, seed)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out
 
 
@@ -2274,6 +2527,84 @@ def mesh_nccl_rank(rank, world, dev, pts_path, eps, seed):
     out["moe"] = _mesh_moe_rank(mesh, dev, seed)
     out["train"] = _mesh_train(mesh, dev, seed)
     return out
+
+
+def _mesh_tp_check(ranks, smi, t_script):
+    """Part tp's checks and line; returns the TP prefills' launches (the
+    ranks', summed)."""
+    from repro_torch.kernels import ops
+    train0 = ranks[0]["tp"]["train"]
+    for r in ranks:
+        require(r["tp"]["train"]["losses_tp"] == train0["losses_tp"],
+                "mesh/tp: the ranks' TP losses differ")
+    require(train0["loss_err"] < 1e-4
+            and train0["grad_rel_err"] <= MESH_TP_GRAD_TOL
+            and train0["grad_max_abs_outside"] <= MESH_TP_PARAM_GRAD_FLOOR,
+            f"mesh/tp: the TP train steps differ from the single-device "
+            f"steps: {train0}")
+    serve0 = ranks[0]["tp"]["serve"]
+    B, H, Hkv, Sq, _, D = MESH_TP_FLASH
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    errs = []
+    for r in ranks:
+        sv = r["tp"]["serve"]
+        lo, hi = sv["rows"]
+        for step, (got, want) in enumerate(zip(sv["logits"],
+                                               serve0["one_logits"])):
+            want = want[lo:hi]
+            scale = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            require(np.isfinite(got).all() and got.shape == want.shape,
+                    f"mesh/tp: step {step}: logits {got.shape}")
+            require(err <= MESH_TP_LOGIT_TOL * scale,
+                    f"mesh/tp: step {step}: the TP logits are {err} from "
+                    f"the single-device run's (tolerance "
+                    f"{MESH_TP_LOGIT_TOL} x {scale})")
+            errs.append(err / scale)
+        require(sv["cache_kv_heads"] == Hkv,
+                f"mesh/tp: the rank's cache holds {sv['cache_kv_heads']} "
+                f"KV heads")
+        require(len(sv["flash_shapes"]) == MESH_TRAIN_LAYERS and all(
+            sh == [B, H, Sq, D, Hkv] for sh in sv["flash_shapes"]),
+            f"mesh/tp: flash ran at {sv['flash_shapes']}, not on the "
+            f"rank's {H} local heads and {Hkv} KV head")
+        require(sv["launches"]["flash_attention"] == MESH_TRAIN_LAYERS,
+                f"mesh/tp: {sv['launches']['flash_attention']} flash "
+                f"launches in a rank's TP prefill")
+        for k, v in sv["launches"].items():
+            launches[k] += v
+    emit("mesh", part="tp", card=smi, backend="gloo", ranks=MESH_RANKS,
+         mesh="2x2", device="cuda:0", arch=TRAIN_ARCH,
+         reduced=f"{MESH_TRAIN_LAYERS} of 28 layers; four ranks share one "
+                 f"card",
+         train=dict(tokens=list(MESH_TRAIN_TOKENS), dtype="float32",
+                    tolerance=f"loss 1e-4 at both steps; every gradient "
+                              f"leaf of the first within {MESH_TP_GRAD_TOL} "
+                              f"of its largest |g|; params after two "
+                              f"AdamW steps within rtol 2e-4 + atol 1e-5 "
+                              f"where the first step's |g| exceeds "
+                              f"{MESH_TP_PARAM_GRAD_FLOOR}",
+                    **{k: v for k, v in train0.items()
+                       if k not in ("step_s_tp", "sent_bytes")}),
+         serve=dict(tokens=list(MESH_TP_PROMPT), decode=MESH_TP_DECODE,
+                    dtype="bfloat16", tolerance=f"{MESH_TP_LOGIT_TOL} of "
+                    f"max |logit| of one device with plain attention",
+                    max_rel_err=max(errs),
+                    one_prefill_s=serve0["one_prefill_s"],
+                    one_decode_step_s=serve0["one_decode_step_s"]),
+         per_rank=[dict(
+             step_s=r["tp"]["train"]["step_s_tp"],
+             step_sent_bytes=r["tp"]["train"]["sent_bytes"],
+             prefill_s=r["tp"]["serve"]["prefill_s"],
+             decode_step_s=r["tp"]["serve"]["decode_step_s"],
+             serve_sent_bytes=r["tp"]["serve"]["sent_bytes"],
+             flash_shapes=r["tp"]["serve"]["flash_shapes"],
+             flash_launches=r["tp"]["serve"]["launches"]["flash_attention"],
+             flash=r["tp"]["flash"],
+             max_memory_allocated=r["tp"]["max_memory_allocated"])
+             for r in ranks],
+         launches=launches, script_s=time.perf_counter() - t_script)
+    return launches
 
 
 def _mesh_moe_check(ranks, n_model, dev, seed, tag):
@@ -2418,9 +2749,9 @@ def _mesh_dryrun_cluster(dev):
 
 def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
     """Phase ``mesh``: one line a part (module docstring).  Returns the
-    mesh path's launches: the gloo ranks' cold fits and the NCCL
-    ranks' fits, each rank's counts set to 0 just before and read just
-    after in its own process."""
+    mesh path's launches: the gloo ranks' cold fits and TP prefills and
+    the NCCL ranks' fits, each rank's counts set to 0 just before and
+    read just after in its own process."""
     import tempfile
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import spawn_ranks
@@ -2465,6 +2796,8 @@ def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
              launches_per_rank=[r["fit"]["launches"] for r in ranks],
              spawn_s=gloo_s, script_s=time.perf_counter() - t_script)
         moe_gloo = _mesh_moe_check(ranks, 2, dev, seed, "gloo")
+        for k, v in _mesh_tp_check(ranks, smi, t_script).items():
+            launches[k] += v
         del ranks
         # ---- NCCL: one rank per card --------------------------------------
         t0 = time.perf_counter()
@@ -2781,6 +3114,11 @@ FLASH_CASES = [
     ("cross_sq_over_sk", 2, 12, 12, 2048, 1500, 64, "bfloat16", False, None,
      None),
     ("internvl2_prefill", 4, 14, 2, 2304, 2304, 64, "bfloat16", True, None,
+     None),
+    # a tensor-parallel rank's prefill call on the 2 x 2 mesh (phase
+    # mesh, part tp): 2 of qwen2's 4 prompts, 6 of its 12 heads on 1 of
+    # its 2 KV heads
+    ("qwen2_prefill_tp_local", *MESH_TP_FLASH, "bfloat16", True, None,
      None),
 ]
 # the kernel against its plain version, elementwise |got - want| <=
@@ -4588,7 +4926,7 @@ def main() -> int:
                       "train": train_launches[name]}
                for name in REPLACES}
     for name, paths in by_path.items():
-        off = (("fit", "serve", "server", "sharded", "mesh", "train")
+        off = (("fit", "serve", "server", "sharded", "train")
                if name == "flash_attention"
                else ("lm", "families", "train"))
         require(all(paths[p] == 0 for p in off),

@@ -16,15 +16,20 @@ result is a list with one tensor per held shard):
   the reference's ``shard_map`` flattens its mesh axes): the halos go to
   the left and right ranks by ``batch_isend_irecv`` (the reference's
   ``ppermute``), the edges by ``all_gather_into_tensor`` (its
-  ``all_gather``), the report by ``all_reduce(MAX)`` over ``int32``.
+  ``all_gather``), the report by ``all_reduce(MAX)`` over ``uint8``
+  (one byte a flag, as the reference's ``psum`` ships bool).
 
 Backends: the collectives run on whatever backend the caller's process
 group has.  Under NCCL the tensors stay on the card (contiguous).  Gloo
 moves host tensors only: with gloo and a CUDA shard, every move copies
 its tensors to the host and the result back to the card, explicitly,
 here (:meth:`GroupComm.stage`).  Nothing picks gloo when NCCL fails: an
-NCCL error raises.  The same rule serves the MoE collectives
-(:func:`all_reduce`, :func:`all_to_all`).
+NCCL error raises.  The same rule serves the MoE and tensor-parallel
+collectives (:func:`all_reduce`, :func:`all_gather`,
+:func:`reduce_scatter`, :func:`all_to_all`), and
+``launch.sharding.gather_leaf``'s gathers of a placed tree: gloo's
+``all_gather_into_tensor`` of CUDA tensors hangs (torch 2.11 on the
+H100), so nothing gathers a CUDA tensor through gloo unstaged.
 
 ``SENT`` counts the bytes each move of a :class:`GroupComm` sends from
 this rank (``exchange``, ``gather``, ``any``), for a caller that reads
@@ -78,6 +83,14 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     out = _run(send, group, lambda x, g:
                _c10d().all_gather_into_tensor(x, n, g))
     return out.to(t.dtype)
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """``reduce_scatter_tensor`` (sum) of ``t`` over ``group``: rank
+    ``j`` gets block ``j`` of dim 0 summed over the ranks."""
+    n = dist.get_world_size(group)
+    return _run(t, group, lambda x, g:
+                _c10d().reduce_scatter_tensor(x, "sum", n, g))
 
 
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
@@ -186,8 +199,8 @@ class GroupComm:
 
     def shard_any(self, vecs: List[torch.Tensor]) -> torch.Tensor:
         (v,) = vecs
-        SENT["any"] += v.numel() * 4
-        return all_reduce(v.to(torch.int32), "max", self.group).to(torch.bool)
+        SENT["any"] += v.numel()
+        return all_reduce(v.to(torch.uint8), "max", self.group).to(torch.bool)
 
     def host_rows(self, tensors: List[torch.Tensor]) -> np.ndarray:
         (t,) = tensors

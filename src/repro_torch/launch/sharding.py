@@ -344,10 +344,32 @@ def place_tree(tree, shardings):
         for t, sh in zip(leaves, shs)])
 
 
+def gather_leaf(t, keep=lambda name, placement: False):
+    """A ``DTensor``'s local shard gathered over each mesh dim it is
+    sharded on, except those where ``keep(mesh dim name, placement)``:
+    a plain tensor.  The gathers are ``dist.comm.all_gather`` over the
+    mesh dim's group, the innermost mesh dim first, so a tensor dim
+    split over several mesh dims (major-to-minor) comes back in order;
+    gloo stages them through the host (``dist/comm.py``)."""
+    from ..dist.comm import all_gather
+
+    mesh = t.device_mesh
+    names = axis_names(mesh)
+    local = t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        pl = t.placements[i]
+        if not pl.is_shard() or mesh.size(i) == 1 or keep(names[i], pl):
+            continue
+        local = all_gather(local.movedim(pl.dim, 0).contiguous(),
+                           mesh.get_group(i)).movedim(0, pl.dim)
+    return local
+
+
 def gather_tree(tree):
-    """Every ``DTensor`` leaf of ``tree`` as its whole tensor."""
+    """Every ``DTensor`` leaf of ``tree`` as its whole tensor
+    (:func:`gather_leaf`)."""
     from torch.distributed.tensor import DTensor
 
     leaves, structure = flatten(tree)
-    return unflatten(structure, [t.full_tensor() if isinstance(t, DTensor)
+    return unflatten(structure, [gather_leaf(t) if isinstance(t, DTensor)
                                  else t for t in leaves])

@@ -22,13 +22,17 @@ fake local shards, placed by ``launch/sharding.py`` (params by
 policy (``seq_parallel``) is installed and ``moe_alltoall`` routes the
 MoE blocks to the explicit-collective variants with expert-parallel
 storage, as the reference's ``build_cell`` does.  The train cell is
-``make_train_step``'s FSDP form; prefill and decode gather the params,
-and the cache's model-sharded dims, and run on the rank's batch rows.
+``make_train_step``'s FSDP x TP form; prefill and decode
+(:func:`prefill_on_mesh`, :func:`decode_on_mesh`) run on the params'
+local view under tensor parallelism on the model axis
+(``models/tensor_parallel.py``) and the rank's batch rows; a KV cache
+keeps its model-sharded heads local and gathers a sequence-sharded one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -124,7 +128,6 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
     from ..train import (get_optimizer, init_state, make_train_step,
                          warmup_cosine)
     from ..train.tree import tree_map
-    from .sharding import gather_tree
 
     dev = resolve_device(device)
     cfg = model_cfg_for(arch, smoke=smoke)
@@ -203,32 +206,67 @@ def build_cell(arch: str, shape: Union[str, ShapeCfg], *, device=None,
 
     if sc.kind == "prefill":
         def prefill_step(params, batch, cache):
-            return prefill(cfg, gather_tree(params), _rows(batch, 0),
-                           _rows(cache, 1))
+            if mesh is None:
+                return prefill(cfg, params, batch, cache)
+            return prefill_on_mesh(cfg, mesh, params, batch, cache)
 
         return prefill_step, (params, prompt, cache), info
 
     # decode: one new token against a seq_len-deep cache
     def serve_step(params, tokens, cache):
-        return decode_step(cfg, gather_tree(params), _rows(tokens, 0),
-                           _rows(cache, 1))
+        if mesh is None:
+            return decode_step(cfg, params, tokens, cache)
+        return decode_on_mesh(cfg, mesh, params, tokens, cache)
 
     return serve_step, (params, tokens, cache), info
 
 
-def _rows(tree, dim: int):
+def prefill_on_mesh(cfg: LMConfig, mesh, params, batch, cache):
+    """One rank's prefill of placed trees (``param_shardings``,
+    ``batch_shardings``, ``cache_shardings``) under tensor parallelism on
+    the model axis: the params' local view
+    (``tensor_parallel.local_params``), the rank's batch rows and cache
+    (:func:`_rows`).  Returns the rank's (last-position logits over the
+    whole vocab, cache of local tensors)."""
+    from ..models import prefill, sharding_ctx
+    from ..models import tensor_parallel as tp
+    with sharding_ctx.tensor_parallel((mesh, tp.MODEL_AXIS)):
+        return prefill(cfg, tp.local_params(cfg, params), _rows(batch, 0),
+                       _rows(cache, 1, cfg))
+
+
+def decode_on_mesh(cfg: LMConfig, mesh, params, tokens, cache):
+    """One rank's decode step of placed trees, as
+    :func:`prefill_on_mesh`; ``tokens`` a ``DTensor`` [B]."""
+    from ..models import decode_step, sharding_ctx
+    from ..models import tensor_parallel as tp
+    with sharding_ctx.tensor_parallel((mesh, tp.MODEL_AXIS)):
+        return decode_step(cfg, tp.local_params(cfg, params),
+                           _rows(tokens, 0), _rows(cache, 1, cfg))
+
+
+def _rows(tree, dim: int, cfg: Optional[LMConfig] = None):
     """This rank's rows of a batch (``dim`` 0) or cache (``dim`` 1) tree:
     every ``DTensor`` leaf keeps its sharding of ``dim`` and is gathered
-    over every other dim it is sharded on, then taken local.  Other
-    leaves pass as they are."""
-    from torch.distributed.tensor import DTensor, Replicate
+    over every other mesh dim it is sharded on
+    (``sharding.gather_leaf``), then taken local.  With ``cfg`` a
+    family that splits attention keeps its KV caches' model-axis shard of
+    the heads dim too (the rank's own KV heads; a sequence-sharded cache
+    is gathered).  Other leaves pass as they are; a leaf kept as it was
+    is the ``DTensor``'s own local tensor, so a prefill writes into it."""
+    from torch.distributed.tensor import DTensor
 
-    from ..train.tree import tree_map
+    from ..models import tensor_parallel as tp
+    from ..train.tree import unflatten
+    from .sharding import gather_leaf, keyed_leaves
 
-    def one(t):
+    def one(path, t):
         if not isinstance(t, DTensor):
             return t
-        pl = [p if p.is_shard(dim) else Replicate() for p in t.placements]
-        return t.redistribute(t.device_mesh, pl).to_local()
+        heads = cfg is not None and cfg.family in tp.FAMILIES and \
+            re.search(r"\['(k|v)'\]$", path) is not None
+        return gather_leaf(t, keep=lambda name, pl: pl.is_shard(dim) or (
+            heads and name == tp.MODEL_AXIS and pl.is_shard(2)))
 
-    return tree_map(one, tree)
+    leaves, structure = keyed_leaves(tree)
+    return unflatten(structure, [one(p, t) for p, t in leaves])

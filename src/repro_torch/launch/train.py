@@ -15,7 +15,8 @@ it trains on the mesh ``make_host_mesh(--model-axis)`` of shape
 installed, as the reference's launcher does; the params and the optimizer
 state are ``DTensor`` s placed by ``param_shardings`` /
 ``state_shardings`` (FSDP x TP storage); each batch is sharded over
-'data'; the step is ``make_train_step``'s FSDP form.  The process group
+'data'; the step is ``make_train_step``'s FSDP x TP form, its compute
+split over 'model' (``models/tensor_parallel.py``).  The process group
 is NCCL on the card and gloo on the CPU; rank 0 prints and writes the
 checkpoints, from whole tensors, so either package restores them.
 ``--model-axis`` other than 1 without a process group raises.

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import tensor_parallel as tp
 from .config import LMConfig
 
 NEG_INF = -1e30
@@ -338,8 +339,10 @@ def attn_params(cfg: LMConfig, gen, device, lead=()) -> dict:
 
 
 def _project_qkv(cfg: LMConfig, p: dict, x: torch.Tensor):
+    """q [B, S, H, Dh], k / v [B, S, KV, Dh], with as many heads as the
+    weights hold columns for (a tensor-parallel rank's own)."""
     B, S, _ = x.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -347,8 +350,8 @@ def _project_qkv(cfg: LMConfig, p: dict, x: torch.Tensor):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh),
-            v.reshape(B, S, KV, Dh))
+    return (q.reshape(B, S, -1, Dh), k.reshape(B, S, -1, Dh),
+            v.reshape(B, S, -1, Dh))
 
 
 def _broadcast_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
@@ -371,8 +374,20 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
     window).  Returns (out [B, S, d], new_cache).  The cache tensors are
     written in place (the reference builds new arrays; the port saves the
     copy), so ``new_cache`` holds the same tensors as ``cache``.
+
+    Under tensor parallelism (``tensor_parallel.active``) a rank whose
+    model axis divides the heads computes its own q heads and the KV
+    heads they read, ``wo`` row-parallel (``tensor_parallel.attn_heads``);
+    its cache holds those KV heads, or every KV head (a gathered cache),
+    of which it writes and reads its own.  Otherwise attention is whole.
     """
     B, S, _ = x.shape
+    ax = tp.active(cfg)
+    heads = tp.attn_heads(cfg, ax)
+    p = tp.attn_weights(cfg, p, ax, heads)
+    if heads is not None:
+        x = tp.copy_in(x, ax.group)
+    q_per_kv = cfg.q_per_kv if heads is None else heads.q_per_kv
     q, k, v = _project_qkv(cfg, p, x)
     if positions is None:
         start = 0 if cache is None else cache["pos"]
@@ -391,6 +406,10 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
         # validity mask is needed.  RoPE is applied pre-cache with absolute
         # positions, so ring rotation does not disturb relative phases.
         ck, cv = cache["k"], cache["v"]
+        if heads is not None and ck.shape[1] != k.shape[1]:
+            # a gathered cache of every KV head: this rank's own
+            ck = ck[:, heads.kv0:heads.kv1]
+            cv = cv[:, heads.kv0:heads.kv1]
         S_c = ck.shape[2]
         pos = cache["pos"]
         ring = window is not None
@@ -405,31 +424,37 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
         else:                           # prefill into an empty cache
             ck[:, :, :S] = k
             cv[:, :, :S] = v
-        new_cache = {"k": ck, "v": cv, "pos": pos + S}
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + S}
         if S == 1:
             # decode: attend over the valid cached prefix
-            kk = _broadcast_kv(ck, cfg.q_per_kv)
-            vv = _broadcast_kv(cv, cfg.q_per_kv)
+            kk = _broadcast_kv(ck, q_per_kv)
+            vv = _broadcast_kv(cv, q_per_kv)
             idx = torch.arange(S_c, device=x.device)
             valid = (idx <= pos) | (pos >= S_c)
             out = _masked_decode_attn(cfg, q, kk, vv, valid,
                                       softcap=cfg.attn_softcap)
         else:
-            out = _prefill_attn(cfg, q, k, v, window)
+            out = _prefill_attn(cfg, q, k, v, window, q_per_kv)
     else:
-        out = _prefill_attn(cfg, q, k, v, window)
+        out = _prefill_attn(cfg, q, k, v, window, q_per_kv)
 
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"].to(out.dtype), new_cache
+    out = out @ p["wo"].to(out.dtype)
+    if heads is not None:
+        out = tp.reduce_out(out, [ax.group])
+    return out, new_cache
 
 
-def _prefill_attn(cfg: LMConfig, q, k, v, window):
+def _prefill_attn(cfg: LMConfig, q, k, v, window, q_per_kv=None):
     """Causal self-attention of a prompt: the flash kernel reads the
-    un-broadcast k / v through its GQA map; the other paths take them
-    broadcast to every query head."""
+    un-broadcast k / v through its GQA map (q head h reads KV head
+    ``h // q_per_kv``, by default the config's); the other paths take
+    them broadcast to every query head."""
+    if q_per_kv is None:
+        q_per_kv = cfg.q_per_kv
     if not cfg.use_flash_kernel:
-        k = _broadcast_kv(k, cfg.q_per_kv)
-        v = _broadcast_kv(v, cfg.q_per_kv)
+        k = _broadcast_kv(k, q_per_kv)
+        v = _broadcast_kv(v, q_per_kv)
     return attention(q, k, v, causal=True, window=window,
                      softcap=cfg.attn_softcap, impl=cfg.attn_impl,
                      chunk=cfg.attn_chunk, logit_dtype=cfg.logit_dtype,
@@ -468,8 +493,16 @@ def _act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_forward(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; under tensor parallelism column-parallel ``w_gate`` /
+    ``w_up`` and row-parallel ``w_down`` over ``d_ff`` where the model
+    axis divides it (``tensor_parallel.mlp_split``)."""
+    ax = tp.active(cfg)
+    p, split = tp.mlp_split(cfg, p, ax)
+    if split:
+        x = tp.copy_in(x, ax.group)
     if cfg.mlp_kind == "glu":
         h = _act(cfg, x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     else:
         h = _act(cfg, x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    return tp.reduce_out(y, [ax.group]) if split else y

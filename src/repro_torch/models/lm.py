@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import tensor_parallel as tp
 from .config import LMConfig
 from .sharding_ctx import constrain
 from .transformer import (block_params, group_layout, init_block_cache,
@@ -90,7 +91,17 @@ def active_params(cfg: LMConfig) -> int:
 # --------------------------------------------------------------------------
 
 def embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens].to(L.dtype_of(cfg.dtype))
+    """The token embeddings [B, S, d]; vocab-parallel under tensor
+    parallelism where the model axis divides the vocab."""
+    ax = tp.active(cfg)
+    span = tp.vocab_split(cfg, ax)
+    dtype = L.dtype_of(cfg.dtype)
+    if span is not None:
+        table = tp.take(params["embed"], 0, cfg.vocab_size, *span, ax)
+        x = tp.embed_lookup(table, tokens, span[0], dtype, ax)
+    else:
+        table = tp.whole(params["embed"], 0, cfg.vocab_size, ax)
+        x = table[tokens].to(dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -103,13 +114,34 @@ def unembed_weights(cfg: LMConfig, params: dict) -> torch.Tensor:
     return params["head"]
 
 
-def logits_for(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    w = unembed_weights(cfg, params).to(h.dtype)
+def _local_logits(cfg: LMConfig, params: dict, h: torch.Tensor):
+    """(float32 logits, the vocab id of their first column): the whole
+    vocab (id 0), or under tensor parallelism the rank's vocab slice of
+    a vocab-parallel head (``h`` enters through ``copy_in``; a tied head
+    reads the embedding's slice)."""
+    ax = tp.active(cfg)
+    span = tp.vocab_split(cfg, ax)
+    w = unembed_weights(cfg, params)
+    if span is not None:
+        h = tp.copy_in(h, ax.group)
+        w = tp.take(w, -1, cfg.vocab_size, *span, ax)
+    else:
+        w = tp.whole(w, -1, cfg.vocab_size, ax)
+    w = w.to(h.dtype)
     # logit *buffer* in cfg.logit_dtype; softcap math in f32
     logits = (h.to(torch.float32) @ w.to(torch.float32)).to(
         L.dtype_of(cfg.logit_dtype)).to(torch.float32)
     if cfg.logit_softcap is not None:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits, 0 if span is None else span[0]
+
+
+def logits_for(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Float32 logits over the whole vocab (a vocab-parallel rank gathers
+    the slices)."""
+    logits, _ = _local_logits(cfg, params, h)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = tp.gather(logits, -1, tp.active(cfg), summed=False)
     return constrain(logits, "btv")
 
 
@@ -155,10 +187,17 @@ def forward(cfg: LMConfig, params: dict, batch: dict,
 # --------------------------------------------------------------------------
 
 def _ce_chunk(cfg: LMConfig, params: dict, h, labels, mask):
-    """Summed masked NLL of one sequence chunk, and its target count."""
-    logits = logits_for(cfg, params, h)                  # [B, C, V] f32
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+    """Summed masked NLL of one sequence chunk, and its target count;
+    vocab-parallel on a tensor-parallel rank's logits
+    (``tensor_parallel.vocab_parallel_ce``)."""
+    ax = tp.active(cfg)
+    if tp.vocab_split(cfg, ax) is None:
+        logits = logits_for(cfg, params, h)              # [B, C, V] f32
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        logits, lo = _local_logits(cfg, params, h)       # [B, C, V / M]
+        lse, tgt = tp.vocab_parallel_ce(logits, labels, lo, ax)
     nll = (lse - tgt) * mask
     return nll.sum(), mask.sum()
 

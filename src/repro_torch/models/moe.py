@@ -35,6 +35,7 @@ import torch
 from . import layers as L
 from .config import LMConfig
 from .sharding_ctx import constrain, get_shardmap_moe
+from .tensor_parallel import copy_in, reduce_out
 
 
 def moe_params(cfg: LMConfig, gen, device, lead=()) -> dict:
@@ -212,28 +213,6 @@ def moe_forward(cfg: LMConfig, p: dict, x: torch.Tensor
 # explicit-collective variants (one process per mesh rank)
 # --------------------------------------------------------------------------
 
-class _SumOverGroups(torch.autograd.Function):
-    """Forward: the sum of ``x`` over each group in turn, times
-    ``scale``.  Backward: the incoming gradient, unchanged.
-
-    Both uses hold a result that every rank of the groups then uses
-    alike: the ff-slice sum over 'model' (Megatron's row-parallel
-    reduction, whose input gradient is the output's) and the mean of
-    the aux loss over the batch axes, whose per-rank gradients the
-    training step averages over the batch axes afterwards."""
-
-    @staticmethod
-    def forward(ctx, x, groups, scale):
-        from ..dist.comm import all_reduce
-        for g in groups:
-            x = all_reduce(x, "sum", g)
-        return x * scale if scale != 1 else x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` in equal blocks; its own inverse, so the
     backward pass sends the gradient blocks back the same way."""
@@ -251,9 +230,12 @@ class _AllToAll(torch.autograd.Function):
 
 
 def _whole(w: torch.Tensor) -> torch.Tensor:
-    """A weight as one local tensor: a ``DTensor`` is gathered."""
+    """A weight as one local tensor: a ``DTensor`` is gathered
+    (``launch.sharding.gather_leaf``)."""
     from torch.distributed.tensor import DTensor
-    return w.full_tensor() if isinstance(w, DTensor) else w
+
+    from ..launch.sharding import gather_leaf
+    return gather_leaf(w) if isinstance(w, DTensor) else w
 
 
 def _batch_group(mesh, batch_axes):
@@ -275,7 +257,16 @@ def _route_local(cfg: LMConfig, p: dict, xf: torch.Tensor, mesh,
     aux = _aux_loss(cfg, probs, top_e)
     groups = [mesh.get_group(a) for a in batch_axes]
     n = math.prod(axis_size(mesh, a) for a in batch_axes)
-    return top_p, top_e, _SumOverGroups.apply(aux, groups, 1.0 / n)
+    return top_p, top_e, reduce_out(aux, groups, 1.0 / n)
+
+
+def _model_partial(xf, top_p, mesh, model_axis):
+    """The tokens and combine weights as the expert path reads them: each
+    model rank's experts (or FFN slices) give it part of their gradient,
+    which ``copy_in`` sums over 'model'.  The router's other input, the
+    aux loss, is the same on every model rank and stays unsummed."""
+    group = mesh.get_group(model_axis)
+    return copy_in(xf, group), copy_in(top_p, group)
 
 
 def moe_forward_shardmap(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
@@ -327,6 +318,7 @@ def moe_forward_shardmap(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
 
     xf = x.reshape(T, d)
     top_p, top_e, aux = _route_local(cfg, p, xf, mesh, batch_axes)
+    xf, top_p = _model_partial(xf, top_p, mesh, model_axis)
     flat_e, flat_t, flat_w = _flat_choices(top_p, top_e, x.dtype)
     if split == 1:
         local_e = flat_e - e0
@@ -341,7 +333,7 @@ def moe_forward_shardmap(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
                                       device=x.device)])
     out = _ffn(cfg, xpad[tok].reshape(v_loc, C, d), wg, wu, wd)
     y = _combine(out, w_slot, tok, T)
-    y = _SumOverGroups.apply(y, [mesh.get_group(model_axis)], 1.0)
+    y = reduce_out(y, [mesh.get_group(model_axis)])
     return y.reshape(B, S, d), aux
 
 
@@ -384,6 +376,7 @@ def moe_forward_shardmap_ep(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
 
     xf = x.reshape(T, d)
     top_p, top_e, aux = _route_local(cfg, p, xf, mesh, batch_axes)
+    xf, top_p = _model_partial(xf, top_p, mesh, model_axis)
     flat_e, flat_t, flat_w = _flat_choices(top_p, top_e, x.dtype)
     # slots (destination rank, local expert, c), flattened
     tok, w_slot, _ = _slot_tables(flat_e, flat_t, flat_w, E, E, C, T)
@@ -398,7 +391,7 @@ def moe_forward_shardmap_ep(cfg: LMConfig, p: dict, x: torch.Tensor, mesh,
         .reshape(n_data, E_loc * C, d)
     ret = _AllToAll.apply(back, group)               # my slots again
     y = _combine(ret, w_slot, tok, T)
-    y = _SumOverGroups.apply(y, [mesh.get_group(model_axis)], 1.0)
+    y = reduce_out(y, [mesh.get_group(model_axis)])
     return y.reshape(B, S, d), aux
 
 

@@ -8,11 +8,14 @@ each value has a ``mesh`` and a ``spec``); on one device and in the
 tests the mapping is empty and ``constrain`` is the identity.
 
 ``constrain`` redistributes only a ``DTensor``: the mesh paths of the
-port compute on local tensors (gathered weights, the rank's batch rows;
-see ``DESIGN_TORCH.md``), where the tags have nothing to move.
+port compute on local tensors (the params' local view, the rank's batch
+rows; see ``DESIGN_TORCH.md``), where the tags have nothing to move.
 
 ``set_shardmap_moe((mesh, batch_axes, model_axis))`` routes
-``moe_forward`` to the explicit-collective MoE variants.
+``moe_forward`` to the explicit-collective MoE variants;
+``set_tensor_parallel((mesh, model_axis))`` (or the context manager
+``tensor_parallel``) splits the dense trunk's compute over the model axis
+(``models/tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Dict, Optional
 
 _SPECS: Dict[str, object] = {}
 _SHARDMAP_MOE = None      # (mesh, batch_axes tuple, model_axis name) | None
+_TENSOR_PARALLEL = None   # (mesh, model_axis name) | None
 
 
 def set_policy(specs: Optional[Dict[str, object]]) -> None:
@@ -38,6 +42,29 @@ def set_shardmap_moe(ctx) -> None:
 
 def get_shardmap_moe():
     return _SHARDMAP_MOE
+
+
+def set_tensor_parallel(ctx) -> None:
+    """Split the compute over the model axis: ctx = (mesh, model_axis),
+    or None to compute on whole weights."""
+    global _TENSOR_PARALLEL
+    _TENSOR_PARALLEL = ctx
+
+
+def get_tensor_parallel():
+    return _TENSOR_PARALLEL
+
+
+@contextlib.contextmanager
+def tensor_parallel(ctx):
+    """``set_tensor_parallel(ctx)`` for the block, the previous context
+    after it."""
+    old = get_tensor_parallel()
+    set_tensor_parallel(ctx)
+    try:
+        yield
+    finally:
+        set_tensor_parallel(old)
 
 
 def get_policy() -> Dict[str, object]:

@@ -32,6 +32,7 @@ from . import layers as L
 from . import moe as M
 from . import rwkv as R
 from . import ssm as SSM
+from . import tensor_parallel as TP
 from .config import LMConfig
 from .sharding_ctx import constrain
 
@@ -134,7 +135,8 @@ def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
     # full, dec_attn also the cross-attention K / V of the encoder output
     window = _kind_window(cfg, kind)
     S_c = max_len if window is None else min(max_len, window)
-    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    # a tensor-parallel rank holds the KV heads its q heads read
+    KV, Dh = TP.cache_kv_heads(cfg), cfg.head_dim
     c = {"k": zeros(KV, S_c, Dh), "v": zeros(KV, S_c, Dh)}
     if kind == "dec_attn":
         c["xk"] = zeros(KV, cfg.enc_seq, Dh)

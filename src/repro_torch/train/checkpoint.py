@@ -54,10 +54,13 @@ def _writer() -> bool:
 def _host(leaf: torch.Tensor) -> np.ndarray:
     """A leaf as a host array; bfloat16 as ``ml_dtypes.bfloat16`` (the
     reference's numpy type for it), carried bit for bit.  A ``DTensor``
-    is gathered whole first (a collective of every rank)."""
+    is gathered whole first (a collective of every rank,
+    ``launch.sharding.gather_leaf``)."""
     from torch.distributed.tensor import DTensor
+
+    from ..launch.sharding import gather_leaf
     if isinstance(leaf, DTensor):
-        leaf = leaf.full_tensor()
+        leaf = gather_leaf(leaf)
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes          # numpy's bfloat16, needed only here

@@ -5,17 +5,16 @@ and the last public names of the reference, on the CPU.
   counted rank-1 step moves, per chip, the ``collective-permute`` and
   ``all-gather`` bytes of the reference's compiled program
   (``repro.launch.dryrun --cluster``, run in a fresh process with 512
-  host devices), on both production meshes; ``all-reduce`` is exactly
-  4x the reference's, since the port ships the seven report flags as
-  int32 where the reference ships bool.
+  host devices), on both production meshes, and its ``all-reduce``
+  bytes too: the port ships the seven report flags as uint8, one byte a
+  flag, as the reference ships bool.
 * The record's own checks at the caps sized for its shard: the counted
   permute equals ``dist.comm.SENT["exchange"]``, an end rank counts half
   an inner rank's, the overflow trail ends clean, the halo ships live
   rows on both sides, the shard's core points equal ``core_flags``'.
 * The CLI, and the contracts the count relies on: what the fake process
   group leaves in a receive and a gather, the accountant's count of
-  ``c10d::send``, and the LM mesh records' collective bytes, which the
-  new count leaves as they were.
+  ``c10d::send``, and the LM mesh records' collective bytes, pinned.
 * ``configs.list_archs``, ``kernels.ref.min_dist`` and the
   ``core.distributed`` shim against the reference's.
 """
@@ -86,7 +85,7 @@ def test_collectives_equal_the_reference_at_its_caps(mesh, reference):
     g, w = got["collective_bytes_per_chip"], want["collective_bytes_per_chip"]
     assert g["collective-permute"] == w["collective-permute"] == 4096
     assert g["all-gather"] == w["all-gather"]
-    assert g["all-reduce"] == 4 * w["all-reduce"]
+    assert g["all-reduce"] == w["all-reduce"]
     assert g["bytes"] == sum(v for k, v in g.items() if k != "bytes")
     assert w["bytes"] == pytest.approx(
         sum(v for k, v in w.items() if k != "bytes"))
@@ -131,7 +130,7 @@ def test_record_counts_what_the_step_sent(cli_records):
         # the edge list [2H, 2] int32 and its flags [2H] uint8, gathered
         k = r["chips"]
         assert coll["all-gather"] == (k - 1) * (2 * H * 2 * 4 + 2 * H)
-        assert sent["any"] == 7 * 4
+        assert sent["any"] == 7
         assert r["halo_live"]["lo"] > 0 and r["halo_live"]["hi"] > 0
         assert max(r["halo_live"].values()) <= H
         assert r["ghosts"] == "padding"
@@ -251,14 +250,21 @@ def test_accountant_counts_sends_as_permute():
     assert c["ops"]["c10d.recv_"]["calls"] == 2
 
 
-# the LM mesh records' collective bytes per chip before the count of
-# c10d::send existed (they send nothing point to point)
+# the LM mesh records' collective bytes per chip (they send nothing point
+# to point), since the steps compute tensor-parallel on the model axis:
+# the params are gathered over 'data' only and keep their 'model' slices
+# where the compute splits (qwen2's 12 heads do not split 16 ways, so its
+# attention weights are still gathered over 'model'), the MLP / attention
+# outputs and the vocab-parallel embedding are summed over 'model', and
+# the last-position logits gathered; the sequence-sharded caches are
+# gathered as before
 LM_MESH = {
     ("qwen2-1.5b", "decode_32k", False): {
-        "bytes": 13196805120.0, "all-gather": 13196805120.0},
+        "bytes": 7992341760.0, "all-reduce": 1336320.0,
+        "all-gather": 7991005440.0},
     ("mixtral-8x7b", "decode_32k", True): {
-        "bytes": 190110597360.0, "all-reduce": 3932400.0,
-        "all-gather": 190106664960.0},
+        "bytes": 185106040560.0, "all-reduce": 7987440.0,
+        "all-gather": 185098053120.0},
 }
 
 
