@@ -45,14 +45,14 @@ result line) as soon as a phase fails:
            batches of 2,048 mixed queries in each predict mode (device
            equal to host bit for bit, kernel equal to host on every
            decidable query, host held to the nearest-core rule in float64
-           on the card), four steps of 85 % predict / 10 % insert / 5 %
-           delete on a host-serving index and a device-resident twin
-           (equal after every step) and a fifth with the resident stages'
-           gates at 0, each stage's flat-gather and host-twin runs
+           on the card), ``MUTATION_STEPS`` = 2 steps of 85 % predict /
+           10 % insert / 5 % delete on a host-serving index and a
+           device-resident twin (equal after every step) and a third with
+           the resident stages' gates at 0, each stage's flat-gather and host-twin runs
            counted, and a snapshot round trip
   server   the serve phase's index through ``snapshot()``, restored
            twice, behind two ``ClusterServer``s (8 slots of 2,048
-           queries) on one scripted stream from ``--seed``: 96 predict
+           queries) on one scripted stream from ``--seed``: 48 predict
            requests of log-uniform 1 - 2,048 ``_queries_mixed`` queries,
            two inserts of 204 points and a delete of 104 live arrival
            ids at fixed positions.  A serves in device mode on a
@@ -100,7 +100,7 @@ result line) as soon as a phase fails:
            index and on the unsharded one restored from the serve phase's
            snapshot before its stream, a split of the fullest shard and a
            merge of the emptiest adjacent pair, the same checks again, a
-           snapshot round trip; last, the stream's other three steps, then
+           snapshot round trip; last, the stream's third step, then
            server C (kernel mode, ``RebalancePolicy(period=4)``) on phase
            ``server``'s stream (the path's second counted run), each
            request's labels equal to server A's as a partition and the
@@ -150,7 +150,26 @@ result line) as soon as a phase fails:
            over 'data') timed in turns against its bound and SDPA's time
            (the flash launches of the TP prefills are the path's, counted
            in each rank with the counts set to 0 just before its
-           prefill);
+           prefill); then, on a 1 x 4 mesh over the same ranks, through
+           ``prefill_on_mesh`` / ``decode_on_mesh`` on placed params,
+           batch and cache: qwen2-1.5b (``MESH_SEQ_LAYERS`` = 14 of 28
+           layers, in ``reduced``) in
+           bfloat16 with flash, a 4 x 2,048 prefill plus 4 decode steps
+           over a cache of 2,064 positions whose sequence is sharded
+           over 'model' (its 2 KV heads do not split 4 ways: 516
+           positions a rank, a decode step's attention split over them),
+           and rwkv6-3b, whisper-small and zamba2-2.7b at their published
+           widths (rwkv6 8 of 32 layers and zamba2 12 of 54, in
+           ``reduced``: ``MESH_FAMILIES``), a 2 x 256 prefill plus 2 decode
+           steps each (whisper under seeded frames): every rank's logits
+           within 3e-2 of the largest |logit| of one device's run with
+           plain attention, the returned cache the placed tree itself, no
+           decode all-gather of a local KV cache leaf (a dispatch mode over
+           the ``_c10d_functional`` ops), flash on
+           the rank's heads at the calls of ``MESH_SEQ_FLASH`` /
+           ``MESH_FAMILY_FLASH`` (rows in phase ``flash``); per rank and
+           model the seconds, the bytes each move sent, the cache leaves'
+           local shapes and the peak memory;
            ``dryrun``, ``dryrun.run_cell`` of qwen2-1.5b x train_4k on
            16 x 16 and 2 x 16 x 16 and of mixtral-8x7b x decode_32k with
            ``moe_alltoall`` on 16 x 16 over a fake process group: per-rank
@@ -215,9 +234,11 @@ result line) as soon as a phase fails:
   families the other families at their published widths, one line
            each, each model freed before the next: mixtral-8x7b (8 of 32
            layers, float32 params), arctic-480b (2 of 35 layers, bfloat16
-           params), zamba2-2.7b, rwkv6-3b, whisper-small and
-           internvl2-1b (all layers, float32), the depth cut only where
-           one 80 GB card forces it (``reduced``); params from a seeded
+           params), zamba2-2.7b (12 of 54 layers) and rwkv6-3b (8 of
+           32; both cut for the script's wall time), whisper-small and
+           internvl2-1b (all layers), float32 params, the depth cut
+           otherwise only where one 80 GB card forces it (``reduced``);
+           params from a seeded
            generator, bfloat16 activations, served through
            ``launch.serve.serve_requests`` with the flash kernel (whisper
            on the reference CLI's zero frames, internvl2 on its zero
@@ -225,7 +246,7 @@ result line) as soon as a phase fails:
            (b) without its 8,192-token prompt, which only mixtral serves
            (past its window: flash's window mask and the ring cache);
            whisper's (b) is 4 prompts of 128 - 256 tokens (its decoder's
-           context is 448); flash launches per prefill 8 / 2 / 9 / 0 /
+           context is 448); flash launches per prefill 8 / 2 / 2 / 0 /
            36 / 24 (one per attention application: whisper's 12 encoder
            layers, 12 decoder self- and 12 cross-attentions) and none in
            a decode step; (b) prefilled again warm as in phase lm; flash
@@ -357,9 +378,14 @@ REPLACES = {
 # mutation step (85 % predict, 10 % insert, 5 % delete)
 SERVE_BATCH = 2048
 SERVE_BATCHES = 8
-MUTATION_STEPS = 4
+# the serve bench mix's steps on each plane (then one more with the resident
+# gates at 0); 4 before the script's wall time had to stay within 970 s
+MUTATION_STEPS = 2
 # phase server: the scripted stream and the servers' admission shape
-SERVER_PREDICTS = 96
+# the scripted stream's predict requests; 96 before the script's wall time
+# had to stay within 970 s (server B's kernel-mode predicts ran twice, in
+# phases server and syncs, some 45 s each on an H100's host)
+SERVER_PREDICTS = 48
 SERVER_INSERT = 204
 SERVER_DELETE = 104
 SERVER_SLOTS = 8
@@ -1286,7 +1312,7 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     split = {"host": [], "device": []}
     ds = idx.device_state
     mirror, record = [], []
-    # the four steps of the mix under the default gates, then one more
+    # the steps of the mix under the default gates, then one more
     # with the gates at 0, so that every write-half stage of the resident
     # plane runs its flat gather on the card at least once
     plan = [(s, False) for s in range(MUTATION_STEPS)] + [(0, True)]
@@ -1337,6 +1363,10 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
                     kernel_decidable=int(decidable.sum()),
                     kernel_mismatches=mism,
                     noise=int((host == -1).sum())),
+        reduced=[dict(key="mutation_steps", published=4,
+                      run=MUTATION_STEPS,
+                      why="the script's wall time: within 970 s (with 4 it "
+                          "took up to 1,158 s on an H100 machine)")],
         mutation=dict(steps=len(plan), steps_gates_0=1, predict=n_pred,
                       insert=n_ins, delete=n_del, merge_graph_s=merge_graph_s,
                       merge_edges=int(len(idx.merge_edges)),
@@ -2144,6 +2174,42 @@ MESH_TP_PARAM_GRAD_FLOOR = 1e-5
 # its 2 KV heads (batch, heads, KV heads, Sq, Sk, head dim)
 MESH_TP_FLASH = (MESH_TP_PROMPT[0] // 2, 6, 1, MESH_TP_PROMPT[1],
                  MESH_TP_PROMPT[1], 128)
+# part tp on a 1 x 4 mesh over the same four gloo ranks: qwen2's 2 KV heads
+# do not split 4 ways, so its cache's sequence is sharded over 'model' (a
+# length the 4 ranks divide: 516 positions a rank); each rank's prefill
+# runs flash on the 4 prompts, 3 of the 12 heads and the 1 KV head they read
+MESH_SEQ_LAYERS = 14            # of 28: the script's wall time
+MESH_SEQ_WHY = ("the script's wall time: at 28 layers a rank's decode step "
+                "took up to 2.75 s of host-staged collectives on an H100")
+MESH_SEQ_CACHE = MESH_TP_PROMPT[1] + 16
+MESH_SEQ_FLASH = (MESH_TP_PROMPT[0], 3, 1, MESH_TP_PROMPT[1],
+                  MESH_TP_PROMPT[1], 128)
+# the other families on the 1 x 4 mesh: (arch, layers run (None: all), why
+# cut, activation dtype); a prefill of MESH_FAMILY_PROMPT plus
+# MESH_FAMILY_DECODE steps each.  The recurrent families run in float32:
+# in bfloat16 their scans amplify the rounding that the split's partial
+# sums change (rwkv6's TP logits 11 % of max |logit| from one device's,
+# as far as bf16 itself moves them), which would hide a wrong split
+_SHARE = ("four ranks share the one 80 GB card, each with its placed params, "
+          "its local view and (rank 0) one device's copy")
+MESH_FAMILIES = (("rwkv6-3b", 8, f"{_SHARE}: 32 float32 layers ran it out "
+                  "of memory (a rank's local view gathers the channel mix's "
+                  "w_v / w_r whole)", "float32"),
+                 ("whisper-small", None, None, "bfloat16"),
+                 ("zamba2-2.7b", 12, f"{_SHARE}; 2 of the shared block's 9 "
+                  "applications, as phase train's step runs 1", "float32"))
+MESH_FAMILY_PROMPT = (2, 256)
+MESH_FAMILY_DECODE = 2
+# a rank's flash calls in those prefills (batch, heads, KV heads, Sq, Sk,
+# head dim, causal): whisper's 12 heads and zamba2's 32 a quarter each
+_FB, _FS = MESH_FAMILY_PROMPT
+MESH_FAMILY_FLASH = {
+    "whisper-small": ((_FB, 3, 3, 1500, 1500, 64, False),
+                      (_FB, 3, 3, _FS, _FS, 64, True),
+                      (_FB, 3, 3, _FS, 1500, 64, False)),
+    "zamba2-2.7b": ((_FB, 8, 8, _FS, _FS, 80, True),),
+    "rwkv6-3b": (),
+}
 
 
 def _mesh_moe_case(dtype, dev, seed):
@@ -2436,6 +2502,170 @@ def _tp_flash(dev, seed):
     return out
 
 
+class _Gathers(torch.utils._python_dispatch.TorchDispatchMode):
+    """The input dims, sorted, of every ``_c10d_functional`` all-gather
+    dispatched under it (``gather_leaf`` sends a leaf whole with the
+    gathered dim moved first)."""
+
+    def __init__(self):
+        super().__init__()
+        self.dims = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name == "_c10d_functional::all_gather_into_tensor":
+            self.dims.append(tuple(sorted(args[0].shape)))
+        return func(*args, **(kwargs or {}))
+
+
+def _seq_model(arch, layers, flash, dtype="bfloat16"):
+    from repro_torch.launch.specs import model_cfg_for
+    cfg = model_cfg_for(arch).with_overrides(
+        dtype=dtype, remat=False, use_flash_kernel=flash)
+    return cfg if layers is None else cfg.with_overrides(num_layers=layers)
+
+
+def _mesh_serve(mesh, dev, cfg, k, batch, toks, max_len, seed):
+    """``cfg`` served through ``prefill_on_mesh`` and a ``decode_on_mesh``
+    per step of ``toks``, on params placed by ``param_shardings`` (drawn
+    from one seed on every rank, in turns, so that one rank at a time
+    holds a whole copy beside the placed ones), the batch by
+    ``batch_shardings`` and a cache made whole and placed by
+    ``cache_shardings``; each step on the cache the last call returned.
+    This rank's logits, seconds, bytes sent, the local shapes of its
+    cache leaves, whether every returned leaf is the placed tree's own,
+    the decode steps' all-gathers of a local KV cache leaf, its flash
+    calls and launches, and its peak memory; on rank 0
+    also one device's logits with plain attention."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.specs import decode_on_mesh, prefill_on_mesh
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill)
+    from repro_torch.train.tree import flatten
+    me = dist.get_rank()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = placed = None
+    for turn in range(dist.get_world_size()):
+        if turn == me:
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed + 134_000 + k), dev)
+            placed = shd.place_tree(params, shd.param_shardings(cfg, mesh,
+                                                                params))
+            if me:
+                params = None
+            torch.cuda.synchronize()
+        dist.barrier()
+    placed_bytes = torch.cuda.memory_allocated()
+    pb = shd.place_tree(batch, shd.batch_shardings(cfg, mesh, batch))
+    whole = init_cache(cfg, batch["tokens"].shape[0], max_len, dev)
+    pc = shd.place_tree(whole, shd.cache_shardings(cfg, mesh, whole))
+    del whole
+    shapes, real = [], ops.flash_attention
+
+    def spy(q, k_, v, **kw):
+        shapes.append([*q.shape, k_.shape[1], bool(kw.get("causal"))])
+        return real(q, k_, v, **kw)
+
+    gathers = _Gathers()
+    _zero_sent()
+    ops.flash_attention = spy
+    ops.reset_launches()
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, c = prefill_on_mesh(cfg, mesh, placed, pb, pc)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            sent_prefill = _sent()
+            got = [logits.float().cpu().numpy()]
+            t0 = time.perf_counter()
+            for t in toks:
+                tt = shd.place_tree({"tokens": t}, shd.batch_shardings(
+                    cfg, mesh, {"tokens": t}))
+                with gathers:
+                    logits, c = decode_on_mesh(cfg, mesh, placed,
+                                               tt["tokens"], c)
+                got.append(logits.float().cpu().numpy())
+            dec_s = (time.perf_counter() - t0) / len(toks)
+    finally:
+        ops.flash_attention = real
+    launches = dict(ops.LAUNCHES)
+    back = flatten(c["slots"])[0]
+    leaves = flatten(pc["slots"])[0]
+    names = [n for slot in pc["slots"] for n in sorted(slot)]
+    local = {n: list(t.to_local().shape) for n, t in zip(names, back)}
+    kv_dims = {tuple(sorted(t.to_local().shape)) for n, t in zip(names, back)
+               if n in ("k", "v", "xk", "xv")}
+    out = dict(logits=got, prefill_s=pre_s, decode_step_s=dec_s,
+               sent_prefill=sent_prefill, sent_prefill_decode=_sent(),
+               cache_local=local,
+               cache_placed=all(a is b and isinstance(a, DTensor)
+                                for a, b in zip(back, leaves)),
+               pos=c["pos"], decode_gathers=len(gathers.dims),
+               cache_gathers=sum(d in kv_dims for d in gathers.dims),
+               flash_shapes=shapes, launches=launches,
+               allocated_after_placing=placed_bytes,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del placed, pc, pb, c, back, leaves
+    torch.cuda.empty_cache()
+    if me == 0:
+        plain = cfg.with_overrides(use_flash_kernel=False)
+        with torch.no_grad():
+            cache = init_cache(plain, batch["tokens"].shape[0], max_len, dev)
+            logits, cache = prefill(plain, params, batch, cache)
+            one = [logits.float().cpu().numpy()]
+            for t in toks:
+                logits, cache = decode_step(plain, params, t, cache)
+                one.append(logits.float().cpu().numpy())
+        out["one_logits"] = one
+        del cache
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _tp_seq_serve(mesh, dev, seed):
+    """Part tp on the 1 x 4 mesh: qwen2-1.5b (``MESH_SEQ_LAYERS``,
+    bf16, flash on) on a ``MESH_TP_PROMPT`` prefill plus
+    ``MESH_TP_DECODE`` steps over a sequence-sharded cache of
+    ``MESH_SEQ_CACHE`` positions, then each of ``MESH_FAMILIES`` on
+    ``MESH_FAMILY_PROMPT`` plus ``MESH_FAMILY_DECODE`` steps (whisper
+    under seeded frames N(0, 1))."""
+    from repro_torch.launch.specs import model_cfg_for
+    out = {}
+    B, S = MESH_TP_PROMPT
+    rng = np.random.default_rng(seed + 135_000)
+    cfg = _seq_model(TRAIN_ARCH, MESH_SEQ_LAYERS, True)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=dev)}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (MESH_TP_DECODE, B)),
+                           dtype=torch.int32, device=dev)
+    out[TRAIN_ARCH] = _mesh_serve(mesh, dev, cfg, 0, batch, toks,
+                                  MESH_SEQ_CACHE, seed)
+    B, S = MESH_FAMILY_PROMPT
+    for k, (arch, layers, _, dtype) in enumerate(MESH_FAMILIES, start=1):
+        cfg = _seq_model(arch, layers, True, dtype)
+        full = model_cfg_for(arch)
+        require((cfg.d_model, cfg.num_heads, cfg.d_ff) ==
+                (full.d_model, full.num_heads, full.d_ff),
+                f"mesh/tp: {arch} not at its published width")
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=dev)}
+        batch.update({n: v.to(getattr(torch, dtype)) for n, v in
+                      _seeded_stubs(cfg, B, dev, seed + 136_000 + k).items()})
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (MESH_FAMILY_DECODE, B)),
+                               dtype=torch.int32, device=dev)
+        out[arch] = _mesh_serve(mesh, dev, cfg, k, batch, toks,
+                                S + MESH_FAMILY_DECODE, seed)
+    return out
+
+
 def _mesh_tp_rank(mesh, dev, seed):
     """Part tp on this rank: the TP train steps, the TP prefill and
     decode, flash at the local-head shape, the peak memory."""
@@ -2446,6 +2676,9 @@ def _mesh_tp_rank(mesh, dev, seed):
     torch.cuda.empty_cache()
     out["flash"] = _tp_flash(dev, seed)
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    from repro_torch.launch.mesh import make_host_mesh
+    out["seq"] = _tp_seq_serve(make_host_mesh(MESH_RANKS, "cuda"), dev,
+                               seed)
     return out
 
 
@@ -2605,6 +2838,90 @@ def _mesh_tp_check(ranks, smi, t_script):
              for r in ranks],
          launches=launches, script_s=time.perf_counter() - t_script)
     return launches
+
+
+def _mesh_seq_check(ranks, smi, t_script):
+    """Part tp's 1 x 4 line: each model's logits on every rank within
+    ``MESH_TP_LOGIT_TOL`` of one device's, the cache back in its
+    placements, no decode all-gather of a KV cache leaf, the flash calls
+    on the rank's heads; returns their launches (the ranks', summed)."""
+    from repro_torch.kernels import ops
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    models = {}
+    B, S = MESH_TP_PROMPT
+    for arch, layers, why, dtype in ((TRAIN_ARCH, MESH_SEQ_LAYERS,
+                                      MESH_SEQ_WHY,
+                                      "bfloat16"), *MESH_FAMILIES):
+        tag = f"mesh/tp/1x4/{arch}"
+        cfg = _seq_model(arch, layers, True, dtype)
+        one = ranks[0]["tp"]["seq"][arch]["one_logits"]
+        if arch == TRAIN_ARCH:
+            calls = [(B, 3, 1, S, S, 128, True)] * cfg.num_layers
+        else:
+            per = MESH_FAMILY_FLASH[arch]
+            n = _attn_per_prefill(cfg) // max(len(per), 1)
+            calls = [c for c in per for _ in range(n)]
+        errs = []
+        for r in ranks:
+            got = r["tp"]["seq"][arch]
+            for step, (a, b) in enumerate(zip(got["logits"], one)):
+                scale = float(np.abs(b).max())
+                err = float(np.abs(a - b).max())
+                require(np.isfinite(a).all() and a.shape == b.shape,
+                        f"{tag}: step {step}: logits {a.shape}")
+                require(err <= MESH_TP_LOGIT_TOL * scale,
+                        f"{tag}: step {step}: the TP logits are {err} from "
+                        f"one device's (tolerance {MESH_TP_LOGIT_TOL} x "
+                        f"{scale})")
+                errs.append(err / scale)
+            require(got["cache_placed"], f"{tag}: the returned cache is not "
+                    f"the placed tree")
+            require(got["cache_gathers"] == 0, f"{tag}: {got['cache_gathers']}"
+                    f" decode all-gathers moved a KV cache leaf")
+            want = sorted([b_, h, s, d, kv, c] for b_, h, kv, s, _, d, c
+                          in calls)
+            require(sorted(got["flash_shapes"]) == want,
+                    f"{tag}: flash ran at {got['flash_shapes']}")
+            require(got["launches"]["flash_attention"] == len(calls),
+                    f"{tag}: {got['launches']['flash_attention']} flash "
+                    f"launches a rank")
+            for k, v in got["launches"].items():
+                launches[k] += v
+        if arch == TRAIN_ARCH:
+            require(ranks[0]["tp"]["seq"][arch]["cache_local"]["k"][3] ==
+                    MESH_SEQ_CACHE // MESH_RANKS,
+                    f"{tag}: the cache's sequence is not split 4 ways")
+        models[arch] = dict(
+            layers=cfg.num_layers, dtype=dtype,
+            reduced=None if layers is None or layers == _model_layers(arch)
+            else dict(key="num_layers", published=_model_layers(arch),
+                      run=layers, why=why),
+            max_rel_err=max(errs),
+            per_rank=[{k: r["tp"]["seq"][arch][k] for k in (
+                "prefill_s", "decode_step_s", "sent_prefill",
+                "sent_prefill_decode", "cache_local", "decode_gathers",
+                "cache_gathers", "allocated_after_placing",
+                "max_memory_allocated")} | dict(
+                flash_launches=r["tp"]["seq"][arch]["launches"][
+                    "flash_attention"]) for r in ranks],
+            flash_calls=sorted({tuple(c) for c in ranks[0]["tp"]["seq"][
+                arch]["flash_shapes"]}))
+    emit("mesh", part="tp", card=smi, backend="gloo", ranks=MESH_RANKS,
+         mesh="1x4", device="cuda:0",
+         tokens=dict(qwen2=list(MESH_TP_PROMPT), families=list(
+             MESH_FAMILY_PROMPT)),
+         decode=dict(qwen2=MESH_TP_DECODE, families=MESH_FAMILY_DECODE),
+         cache_len=dict(qwen2=MESH_SEQ_CACHE),
+         tolerance=f"{MESH_TP_LOGIT_TOL} of max |logit| of one device with "
+                   f"plain attention",
+         models=models, launches=launches,
+         script_s=time.perf_counter() - t_script)
+    return launches
+
+
+def _model_layers(arch):
+    from repro_torch.launch.specs import model_cfg_for
+    return model_cfg_for(arch).num_layers
 
 
 def _mesh_moe_check(ranks, n_model, dev, seed, tag):
@@ -2797,6 +3114,8 @@ def mesh_phase(pts, eps, mesh_carry, fit, seed, dev, smi, t_script):
              spawn_s=gloo_s, script_s=time.perf_counter() - t_script)
         moe_gloo = _mesh_moe_check(ranks, 2, dev, seed, "gloo")
         for k, v in _mesh_tp_check(ranks, smi, t_script).items():
+            launches[k] += v
+        for k, v in _mesh_seq_check(ranks, smi, t_script).items():
             launches[k] += v
         del ranks
         # ---- NCCL: one rank per card --------------------------------------
@@ -3120,6 +3439,15 @@ FLASH_CASES = [
     # its 2 KV heads
     ("qwen2_prefill_tp_local", *MESH_TP_FLASH, "bfloat16", True, None,
      None),
+    # the rank calls of part tp's 1 x 4 mesh: qwen2's 4 prompts on 3 heads
+    # and their 1 KV head; whisper's encoder, decoder self- and cross-
+    # attention on 3 of 12 heads; zamba2's shared block on 8 of 32, in
+    # float32 (the scalar route)
+    ("qwen2_prefill_tp_seq", *MESH_SEQ_FLASH, "bfloat16", True, None, None),
+    *((f"{arch.split('-')[0]}_tp_{i}", b, h, kv, sq, sk, d, dtype, c,
+       None, None)
+      for arch, _, _, dtype in MESH_FAMILIES
+      for i, (b, h, kv, sq, sk, d, c) in enumerate(MESH_FAMILY_FLASH[arch])),
 ]
 # the kernel against its plain version, elementwise |got - want| <=
 # rtol·|want| + atol, and mean |got - want| <= FLASH_MEAN_REL·mean |want|.
@@ -3551,12 +3879,14 @@ FAMILIES = [
      dict(layers=54, d_model=2560, heads=32, kv_heads=32, head_dim=80,
           d_ff=10240, vocab=32000, ssm_state=64, ssm_heads=80,
           shared_attn_every=6, chunk=256, param_dtype="float32"),
-     None, None),
+     12, "the script's wall time, within 970 s: its 54 layers took 29 s of a "
+         "1,029 s run on an H100; 2 of 9 shared-block applications"),
     ("rwkv6-3b",
      dict(layers=32, d_model=2560, heads=40, kv_heads=40, head_dim=64,
           d_ff=8960, vocab=65536, chunk=16, attn_kind="none",
           param_dtype="float32"),
-     None, None),
+     8, "the script's wall time, within 970 s: its 32 layers took 72 s of a "
+        "1,158 s run on an H100"),
     ("whisper-small",
      dict(layers=12, enc_layers=12, enc_seq=1500, d_model=768, heads=12,
           kv_heads=12, head_dim=64, d_ff=3072, vocab=51865,
@@ -3586,7 +3916,7 @@ WIDTH_OF = {
 # application (every moe layer, every application of zamba2's shared
 # block, none in rwkv6; whisper's 12 encoder layers, 12 decoder self-
 # and 12 cross-attentions; internvl2's 24 layers); a decode step none
-FAMILY_FLASH = {"mixtral-8x7b": 8, "arctic-480b": 2, "zamba2-2.7b": 9,
+FAMILY_FLASH = {"mixtral-8x7b": 8, "arctic-480b": 2, "zamba2-2.7b": 2,
                 "rwkv6-3b": 0, "whisper-small": 36, "internvl2-1b": 24}
 # the MoE check's tolerance: the unit tests' bf16 bound on max |diff| /
 # max |y| (tests/test_torch_moe.py); the recurrences': the reference's
@@ -4835,6 +5165,9 @@ def main() -> int:
     require(err == 0.0 and mism == 0, f"row_min_batch differs from its "
             f"plain version on server B's call: err={err} argmin={mism}")
     emit("server", **server, launches=server_launches,
+         reduced=[dict(key="predicts", published=96, run=SERVER_PREDICTS,
+                       why="the script's wall time: within 970 s (with 96 "
+                           "it took up to 1,158 s on an H100 machine)")],
          row_min_batch_call=dict(shape=[*sa_.shape[:2], sb_.shape[1],
                                         sa_.shape[2]],
                                  max_abs_err=err, argmin_mismatches=mism),

@@ -25,14 +25,15 @@ storage, as the reference's ``build_cell`` does.  The train cell is
 ``make_train_step``'s FSDP x TP form; prefill and decode
 (:func:`prefill_on_mesh`, :func:`decode_on_mesh`) run on the params'
 local view under tensor parallelism on the model axis
-(``models/tensor_parallel.py``) and the rank's batch rows; a KV cache
-keeps its model-sharded heads local and gathers a sequence-sharded one.
+(``models/tensor_parallel.py``) and the rank's batch rows, and return
+the cache in its placements: a KV cache keeps its model-sharded heads
+local, and a sequence-sharded one its shard, which the rank writes and
+over which a decode step's attention is split.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -225,14 +226,19 @@ def prefill_on_mesh(cfg: LMConfig, mesh, params, batch, cache):
     """One rank's prefill of placed trees (``param_shardings``,
     ``batch_shardings``, ``cache_shardings``) under tensor parallelism on
     the model axis: the params' local view
-    (``tensor_parallel.local_params``), the rank's batch rows and cache
-    (:func:`_rows`).  Returns the rank's (last-position logits over the
-    whole vocab, cache of local tensors)."""
+    (``tensor_parallel.local_params``), the rank's batch rows
+    (:func:`_rows`) and the cache's local view (:func:`_local_cache`).
+    Returns the rank's (last-position logits over the whole vocab, the
+    placed cache): ``cache``'s own ``DTensor`` s with the rank's writes
+    in their shards, and the new ``pos``."""
     from ..models import prefill, sharding_ctx
     from ..models import tensor_parallel as tp
     with sharding_ctx.tensor_parallel((mesh, tp.MODEL_AXIS)):
-        return prefill(cfg, tp.local_params(cfg, params), _rows(batch, 0),
-                       _rows(cache, 1, cfg))
+        view, write_back = _local_cache(cache)
+        logits, out = prefill(cfg, tp.local_params(cfg, params),
+                              _rows(batch, 0), view)
+        write_back()
+    return logits, {"pos": out["pos"], "slots": cache["slots"]}
 
 
 def decode_on_mesh(cfg: LMConfig, mesh, params, tokens, cache):
@@ -241,32 +247,87 @@ def decode_on_mesh(cfg: LMConfig, mesh, params, tokens, cache):
     from ..models import decode_step, sharding_ctx
     from ..models import tensor_parallel as tp
     with sharding_ctx.tensor_parallel((mesh, tp.MODEL_AXIS)):
-        return decode_step(cfg, tp.local_params(cfg, params),
-                           _rows(tokens, 0), _rows(cache, 1, cfg))
+        view, write_back = _local_cache(cache)
+        logits, out = decode_step(cfg, tp.local_params(cfg, params),
+                                  _rows(tokens, 0), view)
+        write_back()
+    return logits, {"pos": out["pos"], "slots": cache["slots"]}
 
 
-def _rows(tree, dim: int, cfg: Optional[LMConfig] = None):
-    """This rank's rows of a batch (``dim`` 0) or cache (``dim`` 1) tree:
-    every ``DTensor`` leaf keeps its sharding of ``dim`` and is gathered
-    over every other mesh dim it is sharded on
-    (``sharding.gather_leaf``), then taken local.  With ``cfg`` a
-    family that splits attention keeps its KV caches' model-axis shard of
-    the heads dim too (the rank's own KV heads; a sequence-sharded cache
-    is gathered).  Other leaves pass as they are; a leaf kept as it was
-    is the ``DTensor``'s own local tensor, so a prefill writes into it."""
+def _rows(tree, dim: int):
+    """This rank's rows of a batch tree: every ``DTensor`` leaf keeps its
+    sharding of ``dim`` and is gathered over every other mesh dim it is
+    sharded on (``sharding.gather_leaf``), then taken local.  Other
+    leaves pass as they are."""
+    from torch.distributed.tensor import DTensor
+
+    from ..train.tree import flatten, unflatten
+    from .sharding import gather_leaf
+
+    leaves, structure = flatten(tree)
+    return unflatten(structure, [
+        gather_leaf(t, keep=lambda name, pl: pl.is_shard(dim))
+        if isinstance(t, DTensor) else t for t in leaves])
+
+
+def _local_cache(cache):
+    """(the local view of a placed cache that a step computes on, a
+    function that writes the step's results back into the placed
+    shards), under the tensor-parallel context.
+
+    Every ``DTensor`` leaf but one keeps its shards: the batch (dim 1),
+    a KV cache's heads (dim 2) or sequence (dim 3), rwkv6's ``wkv`` heads.
+    The model splits its compute where ``cache_shardings`` splits those
+    dims (a dim of the model axis's size's multiple), so these views are
+    the ``DTensor`` s' own local tensors and the step writes into them.
+    A slot whose KV cache is sequence-sharded gets its shard's
+    descriptor (``tensor_parallel.SeqShard``) under ``"seq"`` (``k`` /
+    ``v``) or ``"xseq"`` (``xk`` / ``xv``).  The mamba ``ssm`` state, split
+    over heads but computed whole, is gathered (``sharding.gather_leaf``)
+    and the write-back copies the rank's slice of it into its shard."""
     from torch.distributed.tensor import DTensor
 
     from ..models import tensor_parallel as tp
-    from ..train.tree import unflatten
-    from .sharding import gather_leaf, keyed_leaves
+    from .sharding import gather_leaf
 
-    def one(path, t):
-        if not isinstance(t, DTensor):
-            return t
-        heads = cfg is not None and cfg.family in tp.FAMILIES and \
-            re.search(r"\['(k|v)'\]$", path) is not None
-        return gather_leaf(t, keep=lambda name, pl: pl.is_shard(dim) or (
-            heads and name == tp.MODEL_AXIS and pl.is_shard(2)))
+    def keep(name, pl):
+        return name != "ssm" or pl.is_shard(1)
 
-    leaves, structure = keyed_leaves(tree)
-    return unflatten(structure, [one(p, t) for p, t in leaves])
+    def seq_shard(t):
+        mesh = t.device_mesh
+        dims = [i for i, pl in enumerate(t.placements)
+                if pl.is_shard(3) and mesh.size(i) > 1]
+        rank, size = 0, 1
+        for i in dims:
+            rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+            size *= mesh.size(i)
+        return tp.SeqShard(tuple(mesh.get_group(i) for i in dims), size,
+                           rank) if dims else None
+
+    gathered, slots = [], []
+    for slot in cache["slots"]:
+        view = dict(slot)
+        for name, t in slot.items():
+            if isinstance(t, DTensor):
+                view[name] = gather_leaf(t, lambda _, pl: keep(name, pl))
+                dims = [i for i, pl in enumerate(t.placements)
+                        if pl.is_shard() and t.device_mesh.size(i) > 1
+                        and not keep(name, pl)]
+                if dims:
+                    gathered.append((t, view[name], dims))
+        for name, key in (("k", "seq"), ("xk", "xseq")):
+            shard = seq_shard(slot[name]) \
+                if isinstance(slot.get(name), DTensor) else None
+            if shard is not None:
+                view[key] = shard
+        slots.append(view)
+
+    def write_back():
+        for t, whole, dims in gathered:
+            for i in dims:
+                d, mesh = t.placements[i].dim, t.device_mesh
+                n = whole.shape[d] // mesh.size(i)
+                whole = whole.narrow(d, mesh.get_local_rank(i) * n, n)
+            t.to_local().copy_(whole)
+
+    return {"pos": cache["pos"], "slots": tuple(slots)}, write_back

@@ -378,13 +378,21 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
     Under tensor parallelism (``tensor_parallel.active``) a rank whose
     model axis divides the heads computes its own q heads and the KV
     heads they read, ``wo`` row-parallel (``tensor_parallel.attn_heads``);
-    its cache holds those KV heads, or every KV head (a gathered cache),
-    of which it writes and reads its own.  Otherwise attention is whole.
+    its cache holds those KV heads, or every KV head, which it then
+    projects and writes all of and reads its own.  Otherwise attention is
+    whole.  A cache with a ``"seq"`` entry (``tensor_parallel.SeqShard``)
+    is the rank's shard of the sequence: the rank writes the positions it
+    owns, and a decode step's attention is split over the shards
+    (:func:`_masked_decode_attn`).
     """
     B, S, _ = x.shape
     ax = tp.active(cfg)
     heads = tp.attn_heads(cfg, ax)
-    p = tp.attn_weights(cfg, p, ax, heads)
+    seq = None if cache is None else cache.get("seq")
+    # a cache of every KV head under split q heads: project them all
+    all_kv = heads is not None and cache is not None and \
+        cache["k"].shape[1] == cfg.num_kv_heads != heads.kv1 - heads.kv0
+    p = tp.attn_weights(cfg, p, ax, heads, all_kv)
     if heads is not None:
         x = tp.copy_in(x, ax.group)
     q_per_kv = cfg.q_per_kv if heads is None else heads.q_per_kv
@@ -406,35 +414,46 @@ def attn_forward(cfg: LMConfig, p: dict, x: torch.Tensor, freqs: torch.Tensor,
         # validity mask is needed.  RoPE is applied pre-cache with absolute
         # positions, so ring rotation does not disturb relative phases.
         ck, cv = cache["k"], cache["v"]
-        if heads is not None and ck.shape[1] != k.shape[1]:
-            # a gathered cache of every KV head: this rank's own
-            ck = ck[:, heads.kv0:heads.kv1]
-            cv = cv[:, heads.kv0:heads.kv1]
-        S_c = ck.shape[2]
+        n = ck.shape[2]                 # the positions this rank holds
+        lo, _ = (0, n) if seq is None else seq.span(n)
+        S_c = n if seq is None else n * seq.size
         pos = cache["pos"]
         ring = window is not None
         if S == 1:
             slot = (pos % S_c) if ring else pos
-            slot = min(max(slot, 0), S_c - 1)   # the reference's clamp
-            ck[:, :, slot] = k[:, :, 0]
-            cv[:, :, slot] = v[:, :, 0]
-        elif S >= S_c:                  # prefill: keep the trailing window
-            ck.copy_(k[:, :, S - S_c:])
-            cv.copy_(v[:, :, S - S_c:])
-        else:                           # prefill into an empty cache
-            ck[:, :, :S] = k
-            cv[:, :, :S] = v
+            slot = min(max(slot, 0), S_c - 1) - lo  # the reference's clamp
+            if 0 <= slot < n:
+                ck[:, :, slot] = k[:, :, 0]
+                cv[:, :, slot] = v[:, :, 0]
+        else:
+            # prefill into an empty cache, or its trailing window: cache
+            # position j holds prompt position j + first
+            first = max(S - S_c, 0)
+            hi = min(lo + n, S - first)
+            if hi > lo:
+                ck[:, :, :hi - lo] = k[:, :, first + lo:first + hi]
+                cv[:, :, :hi - lo] = v[:, :, first + lo:first + hi]
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + S}
+        # of every KV head, the ones this rank's q heads read
+        kv = slice(heads.kv0, heads.kv1) if all_kv else slice(None)
         if S == 1:
             # decode: attend over the valid cached prefix
-            kk = _broadcast_kv(ck, q_per_kv)
-            vv = _broadcast_kv(cv, q_per_kv)
-            idx = torch.arange(S_c, device=x.device)
+            idx = lo + torch.arange(n, device=x.device)
             valid = (idx <= pos) | (pos >= S_c)
-            out = _masked_decode_attn(cfg, q, kk, vv, valid,
-                                      softcap=cfg.attn_softcap)
+            qpk = q_per_kv
+            if seq is None:
+                ck, cv = ck[:, kv], cv[:, kv]
+            elif heads is not None:
+                # every q head against this rank's keys
+                q, qpk = tp.gather_heads(q, ax), cfg.q_per_kv
+            out = _masked_decode_attn(cfg, q, _broadcast_kv(ck, qpk),
+                                      _broadcast_kv(cv, qpk), valid,
+                                      softcap=cfg.attn_softcap, seq=seq)
+            if seq is not None and heads is not None:
+                out = out[:, heads.h0:heads.h1]
         else:
-            out = _prefill_attn(cfg, q, k, v, window, q_per_kv)
+            out = _prefill_attn(cfg, q, k[:, kv], v[:, kv], window,
+                                q_per_kv)
     else:
         out = _prefill_attn(cfg, q, k, v, window, q_per_kv)
 
@@ -461,13 +480,28 @@ def _prefill_attn(cfg: LMConfig, q, k, v, window, q_per_kv=None):
                      use_flash=cfg.use_flash_kernel)
 
 
-def _masked_decode_attn(cfg, q, k, v, valid, softcap=None):
+def _masked_decode_attn(cfg, q, k, v, valid, softcap=None, seq=None):
+    """Attention of q [B, H, Sq, Dh] over the keys k / v [B, H, Sk, Dh]
+    where ``valid`` [Sk].  With ``seq`` (a ``tensor_parallel.SeqShard``)
+    the keys are this rank's shard of the sequence and the softmax is
+    split over the shards in the reference's order, as XLA partitions it:
+    float32 logits over the local keys, their row max and its sum of
+    ``exp`` each combined over the shards (``all_reduce`` MAX, SUM), the
+    reference's ``p`` in ``v``'s dtype, and its local ``p v`` in float32
+    summed over the shards."""
     logits = (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2)) \
         * cfg.head_dim ** -0.5
     logits = _soft_cap(logits, softcap)
     logits = torch.where(valid, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1).to(v.dtype)
-    return p @ v
+    if seq is None:
+        p = torch.softmax(logits, dim=-1).to(v.dtype)
+        return p @ v
+    m = seq.all_reduce(logits.amax(dim=-1), "max")[..., None]
+    e = torch.exp(logits - m)
+    l = seq.all_reduce(e.sum(dim=-1), "sum")[..., None]
+    p = (e / l).to(v.dtype)
+    out = p.to(torch.float32) @ v.to(torch.float32)
+    return seq.all_reduce(out, "sum").to(v.dtype)
 
 
 # --------------------------------------------------------------------------

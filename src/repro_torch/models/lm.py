@@ -272,14 +272,24 @@ def _fill_cross_kv(cfg: LMConfig, params: dict, frames: torch.Tensor,
                    cache: dict) -> dict:
     """Encode ``frames`` and write every decoder layer's cross-attention
     K / V into the cache (in place): one product over the group axis for
-    each of K and V (the reference maps over the groups)."""
+    each of K and V (the reference maps over the groups).  Under tensor
+    parallelism the cache holds the rank's KV heads (their columns of
+    ``wk`` / ``wv``), or every KV head; with an ``"xseq"`` entry (a
+    ``tensor_parallel.SeqShard``) the rank's shard of the frames."""
     enc_out = encode(cfg, params, frames)                  # [B, T, d]
     B, T, _ = enc_out.shape
     p, slot = params["blocks"][0]["xattn"], cache["slots"][0]
+    ax = tp.active(cfg)
+    heads = tp.attn_heads(cfg, ax)
+    KV = slot["xk"].shape[2]
+    p = tp.attn_weights(cfg, {"wk": p["wk"], "wv": p["wv"]}, ax, heads,
+                        all_kv=KV == cfg.num_kv_heads)
+    seq = slot.get("xseq")
+    lo, hi = (0, T) if seq is None else seq.span(slot["xk"].shape[3])
     for name, w in (("xk", p["wk"]), ("xv", p["wv"])):
         y = torch.matmul(enc_out, w.to(enc_out.dtype)[:, None])  # [G, B, T, .]
-        slot[name].copy_(y.reshape(-1, B, T, cfg.num_kv_heads, cfg.head_dim)
-                         .transpose(2, 3))
+        slot[name].copy_(y.reshape(-1, B, T, KV, cfg.head_dim)
+                         .transpose(2, 3)[:, :, :, lo:hi])
     return cache
 
 

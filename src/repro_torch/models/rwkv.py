@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from . import tensor_parallel as tp
 from .config import LMConfig
 
 LOG_DECAY_MIN = -5.0
@@ -80,11 +81,22 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def _decays(p: dict, xw: torch.Tensor) -> torch.Tensor:
-    """log-decay per channel, clamped. xw: [B, S, d] -> [B, S, d] (f32, <0)."""
+def _decays(p: dict, xw: torch.Tensor, cols=None) -> torch.Tensor:
+    """log-decay per channel, clamped. xw: [B, S, d] -> [B, S, d] (f32, <0).
+
+    ``cols`` ``(lo, hi, model axis)``: the channels ``[lo, hi)`` only,
+    from the whole low-rank input (entered through ``copy_in``) and the
+    rank's columns of ``dec_b`` and ``w0``."""
     f32 = torch.float32
-    lora = torch.tanh(xw.to(f32) @ p["dec_a"].to(f32)) @ p["dec_b"].to(f32)
-    lw = -torch.exp(torch.clamp(p["w0"].to(f32) + lora, -8.0, 4.0))
+    a = torch.tanh(xw.to(f32) @ p["dec_a"].to(f32))
+    w0, dec_b = p["w0"], p["dec_b"]
+    if cols is not None:
+        lo, hi, ax = cols
+        a = tp.copy_in(a, ax.group)
+        d = w0.shape[-1]
+        w0, dec_b = (tp.take(w, -1, d, lo, hi, ax) for w in (w0, dec_b))
+    lora = a @ dec_b.to(f32)
+    lw = -torch.exp(torch.clamp(w0.to(f32) + lora, -8.0, 4.0))
     return torch.clamp(lw, LOG_DECAY_MIN, -1e-4)
 
 
@@ -136,20 +148,42 @@ def _wkv_scan(r, k, v, lw, u, s0, chunk: int):
 def rwkv_time_mix(cfg: LMConfig, p: dict, x: torch.Tensor,
                   state: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: [B, S, d]. state (decode): {"wkv": [B, H, Dk, Dv], "shift": [B, d]}."""
+    """x: [B, S, d]. state (decode): {"wkv": [B, H, Dk, Dv], "shift": [B, d]}.
+
+    Under tensor parallelism where the model axis divides the heads
+    (``tensor_parallel.rwkv_heads``) a rank runs its own heads: the
+    column-parallel ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` (its storage
+    slices), the decay, ``u``, the scan, the group norm and the gate on
+    them, ``w_o``'s rows for them and :func:`tensor_parallel.reduce_out`;
+    its ``wkv`` state holds those heads.  Otherwise the mix is whole."""
     f32 = torch.float32
     B, S, d = x.shape
     H = cfg.num_heads
     Dh = d // H
+    ax = tp.active(cfg)
+    span = tp.rwkv_heads(cfg, ax)
     last = state["shift"] if state is not None else None
     xs = _token_shift(x, last)
     xr, xk, xv, xg, xw = (_mix(x, xs, p["mu"][i]) for i in range(5))
-    r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
-    k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
-    v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
-    g = F.silu(xg @ p["w_g"].to(x.dtype))
-    lw = _decays(p, xw).reshape(B, S, H, Dh)
-    u = p["u"].to(f32)
+    proj = ("w_r", "w_k", "w_v", "w_g")
+    if span is None:
+        w = {n: tp.whole(p[n], -1, d, ax) for n in proj}
+        u, ln, w_o, cols = p["u"], p["ln_scale"], p["w_o"], None
+    else:
+        lo, hi = span[0] * Dh, span[1] * Dh
+        xr, xk, xv, xg = (tp.copy_in(t, ax.group) for t in (xr, xk, xv, xg))
+        w = {n: tp.take(p[n], -1, d, lo, hi, ax) for n in proj}
+        u = tp.take(p["u"], -2, H, *span, ax)
+        ln = tp.take(p["ln_scale"], -1, d, lo, hi, ax)
+        w_o = tp.take(p["w_o"], -2, d, lo, hi, ax)
+        cols = (lo, hi, ax)
+        H = span[1] - span[0]
+    r = (xr @ w["w_r"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
+    k = (xk @ w["w_k"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
+    v = (xv @ w["w_v"].to(x.dtype)).reshape(B, S, H, Dh).to(f32)
+    g = F.silu(xg @ w["w_g"].to(x.dtype))
+    lw = _decays(p, xw, cols).reshape(B, S, H, Dh)
+    u = u.to(f32)
 
     s0 = state["wkv"].to(f32) if state is not None else \
         torch.zeros((B, H, Dh, Dh), dtype=f32, device=x.device)
@@ -159,8 +193,10 @@ def rwkv_time_mix(cfg: LMConfig, p: dict, x: torch.Tensor,
     yn = L.rms_norm(y.reshape(B * S * H, Dh),
                     torch.zeros((Dh,), dtype=f32, device=x.device),
                     cfg.norm_eps)
-    y = (yn.reshape(B, S, d) * p["ln_scale"].to(f32)).to(x.dtype) * g
-    out = y @ p["w_o"].to(x.dtype)
+    y = (yn.reshape(B, S, H * Dh) * ln.to(f32)).to(x.dtype) * g
+    out = y @ w_o.to(x.dtype)
+    if span is not None:
+        out = tp.reduce_out(out, [ax.group])
     new_state = None
     if state is not None:
         new_state = {"wkv": s_fin.to(state["wkv"].dtype), "shift": x[:, -1]}
@@ -170,13 +206,28 @@ def rwkv_time_mix(cfg: LMConfig, p: dict, x: torch.Tensor,
 def rwkv_channel_mix(cfg: LMConfig, p: dict, x: torch.Tensor,
                      state: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The channel mix; under tensor parallelism where the model axis
+    divides ``d_ff``, ``w_k`` column-parallel over it (its storage
+    slice), ``w_v`` (gathered whole) taken by its rows for the rank's
+    ``d_ff`` slice and :func:`tensor_parallel.reduce_out`; ``w_r`` whole."""
     last = state["shift"] if state is not None else None
     xs = _token_shift(x, last)
     xk = _mix(x, xs, p["mu"][0])
     xr = _mix(x, xs, p["mu"][1])
-    k = torch.square(torch.relu(xk @ p["w_k"].to(x.dtype)))
-    out = torch.sigmoid(xr @ p["w_r"].to(x.dtype)) * \
-        (k @ p["w_v"].to(x.dtype))
+    ax, ff = tp.active(cfg), cfg.d_ff
+    split = ax is not None and ff % ax.size == 0
+    if split:
+        lo, hi = ax.slice_of(ff)
+        xk = tp.copy_in(xk, ax.group)
+        w_k = tp.take(p["w_k"], -1, ff, lo, hi, ax)
+        w_v = tp.take(p["w_v"], -2, ff, lo, hi, ax)
+    else:
+        w_k, w_v = tp.whole(p["w_k"], -1, ff, ax), p["w_v"]
+    k = torch.square(torch.relu(xk @ w_k.to(x.dtype)))
+    kv = k @ w_v.to(x.dtype)
+    if split:
+        kv = tp.reduce_out(kv, [ax.group])
+    out = torch.sigmoid(xr @ p["w_r"].to(x.dtype)) * kv
     new_state = {"shift": x[:, -1]} if state is not None else None
     return out, new_state
 

@@ -33,9 +33,32 @@ is ``1 / M`` of its whole size).
   :func:`vocab_parallel_ce` takes the max over the vocab by an
   ``all_reduce(MAX)``, the sum of ``exp`` and the target logit by
   :func:`reduce_out`.
+* **A sequence-sharded cache** (``M`` does not divide ``KV``: its
+  sequence dim is sharded over 'model', or over ('data', 'model') for a
+  batch the batch axes do not split): :class:`SeqShard` describes the
+  rank's shard, positions ``[r S_c / G, (r + 1) S_c / G)`` of the
+  group's ``G`` ranks.  The rank writes the positions it owns of every
+  KV head (``wk`` / ``wv`` whole on it, :func:`attn_weights` with
+  ``all_kv``), and a decode step's attention is split over the shards:
+  local logits, then the row max, the sum of ``exp`` and ``P V`` each
+  summed by :meth:`SeqShard.all_reduce` (``layers._masked_decode_attn``),
+  as XLA partitions the reference's decode attention over the same
+  cache.  Where the rank's q heads are split too, q is gathered over
+  'model' first (:func:`gather_heads`) and the rank keeps its own heads
+  of the result.
+* **rwkv6** where ``M | H``: the time mix's ``w_r`` / ``w_k`` / ``w_v``
+  / ``w_g`` column-parallel over heads, the decay, ``u``, the WKV scan,
+  the group norm and the gate on the rank's heads, ``w_o`` (whole in
+  storage) taken by its rows for them; the channel mix's ``w_k``
+  column-parallel over ``d_ff`` and ``w_v`` (stored split over ``d``)
+  taken whole by its ``d_ff`` rows, ``w_r`` whole (:func:`rwkv_heads`).
+* **whisper**: the encoder's and the decoder's attention (self and
+  cross) and MLPs split as the dense trunk's; the cross-attention K / V
+  of the cache hold the rank's KV heads.  **zamba2**: the shared block
+  splits as the dense trunk's; mamba is whole (no rule shards it over
+  'model').
 
-The families outside :data:`FAMILIES` (rwkv, the hybrid, encoder-decoder)
-compute on gathered weights, as do the MoE experts and router (the two
+The MoE experts and router compute on gathered weights (the two
 explicit-collective MoE variants slice whole weights themselves).
 :func:`local_params` is the local view a step computes on: each
 ``DTensor`` leaf gathered over every mesh dim but the model axis, whose
@@ -45,7 +68,8 @@ Every collective goes through ``dist/comm.py`` (gloo stages through the
 host).  ``SENT`` counts the bytes this rank sends by move: ``reduce``
 (the sums of both halves of the pair), ``gather`` (the weights and logits
 gathered over the model axis, and the sums of their backward), ``max``
-(the CE's maximum); set an entry to 0 to start a count.
+(the CE's maximum), ``combine`` (a split decode attention's sums and
+its q gather); set an entry to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -59,10 +83,20 @@ import torch.distributed as dist
 
 from .sharding_ctx import get_shardmap_moe, get_tensor_parallel
 
-FAMILIES = ("dense", "vlm", "moe")
+# the param leaves a step keeps local on the model axis, per family: the
+# embedding and the head, and the leaves whose compute splits (the rest
+# is gathered whole); FAMILIES are the families that split their compute
+_TRUNK = r"\['(attn|mlp)'\]\['\w+'\]$"
+_KEEPS = {
+    "dense": _TRUNK, "vlm": _TRUNK, "moe": _TRUNK,
+    "hybrid": _TRUNK,                       # the shared block
+    "encdec": r"\['(attn|xattn|mlp)'\]\['\w+'\]$",
+    "rwkv": r"\['tm'\]\['w_[rkvg]'\]$|\['cm'\]\['w_k'\]$",
+}
+FAMILIES = tuple(_KEEPS)
 MODEL_AXIS = "model"      # the mesh axis the steps split their compute over
 _EXPERT = re.compile(r"\['moe'\]\['w_(gate|up|down)'\]$")
-SENT = {"reduce": 0, "gather": 0, "max": 0}
+SENT = {"reduce": 0, "gather": 0, "max": 0, "combine": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,18 +287,19 @@ def attn_heads(cfg, ax: Optional[ModelAxis]) -> Optional[Heads]:
 
 
 def attn_weights(cfg, p: dict, ax: Optional[ModelAxis],
-                 heads: Optional[Heads]) -> dict:
+                 heads: Optional[Heads], all_kv: bool = False) -> dict:
     """The attention weights a rank computes with: its heads' columns of
     ``wq`` / ``wk`` / ``wv`` (and biases) and rows of ``wo`` under
-    ``heads``, every one whole without."""
+    ``heads``, every one whole without; with ``all_kv`` the columns of
+    every KV head (a cache that holds them all)."""
     if ax is None:
         return p
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cols = {"q": (H * Dh, None), "k": (KV * Dh, None), "v": (KV * Dh, None)}
     if heads is not None:
+        kv = None if all_kv else (heads.kv0 * Dh, heads.kv1 * Dh)
         cols = {"q": (H * Dh, (heads.h0 * Dh, heads.h1 * Dh)),
-                "k": (KV * Dh, (heads.kv0 * Dh, heads.kv1 * Dh)),
-                "v": (KV * Dh, (heads.kv0 * Dh, heads.kv1 * Dh))}
+                "k": (KV * Dh, kv), "v": (KV * Dh, kv)}
     out = {}
     for name, w in p.items():
         key = "q" if name in ("wq", "bq", "wo") else name[1]
@@ -294,6 +329,60 @@ def cache_kv_heads(cfg) -> int:
     where attention splits, else all."""
     heads = attn_heads(cfg, active(cfg))
     return cfg.num_kv_heads if heads is None else heads.kv1 - heads.kv0
+
+
+def rwkv_heads(cfg, ax: Optional[ModelAxis]) -> Optional[Tuple[int, int]]:
+    """The rank's rwkv6 heads ``[h0, h1)`` where the time mix splits
+    (``M | H``), else None (whole)."""
+    if ax is None or cfg.num_heads % ax.size:
+        return None
+    return ax.slice_of(cfg.num_heads)
+
+
+def cache_rwkv_heads(cfg) -> int:
+    """The heads of a rank's ``wkv`` state: its own where the time mix
+    splits, else all."""
+    span = rwkv_heads(cfg, active(cfg))
+    return cfg.num_heads if span is None else span[1] - span[0]
+
+
+# --------------------------------------------------------------------------
+# a sequence-sharded cache
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A rank's shard of a cache's sequence dim, split over the mesh dims
+    whose process groups are ``groups`` (outer first): ``size`` shards,
+    this rank's the ``rank``-th (major-to-minor, as ``PartitionSpec``
+    lays a dim over several axes)."""
+
+    groups: tuple
+    size: int
+    rank: int
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """The whole cache's ``[lo, lo + n)`` of a shard of ``n``
+        positions."""
+        return self.rank * n, (self.rank + 1) * n
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``op`` ("max" / "sum") of ``t`` over the shards: over each
+        group in turn."""
+        from ..dist.comm import all_reduce
+        for g in self.groups:
+            SENT["combine"] += _nbytes(t)
+            t = all_reduce(t, op, g)
+        return t
+
+
+def gather_heads(x: torch.Tensor, ax: ModelAxis) -> torch.Tensor:
+    """Every rank's heads (dim 1) of ``x``, in rank order: the q of a
+    decode step whose heads are split over the model axis, for a split
+    attention over a sequence-sharded cache (no grad)."""
+    from ..dist.comm import all_gather
+    SENT["combine"] += _nbytes(x)
+    return all_gather(x.movedim(1, 0).contiguous(), ax.group).movedim(0, 1)
 
 
 def vocab_split(cfg, ax: Optional[ModelAxis]) -> Optional[Tuple[int, int]]:
@@ -344,12 +433,14 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, lo: int,
 
 def keeps_model_slice(cfg, path: str) -> bool:
     """Whether a step keeps the param at ``path`` (keystr form) local on
-    the model axis: the embedding, the head, and the attention and MLP
-    leaves of the :data:`FAMILIES`; the rest is gathered whole."""
-    if cfg.family not in FAMILIES:
+    the model axis: the embedding, the head, and the leaves whose compute
+    splits in its family (``_KEEPS``: the attention and MLP leaves, the
+    rwkv projections stored split over 'model'); the rest is gathered
+    whole."""
+    rule = _KEEPS.get(cfg.family)
+    if rule is None:
         return False
-    return path in ("['embed']", "['head']") or bool(
-        re.search(r"\['(attn|mlp)'\]\['\w+'\]$", path))
+    return path in ("['embed']", "['head']") or bool(re.search(rule, path))
 
 
 def grad_placement(cfg, path: str, placement):

@@ -119,8 +119,10 @@ def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
         return torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
 
     if kind == "rwkv":
+        # a tensor-parallel rank's state holds the heads its time mix runs
         Dh_r = d // cfg.num_heads
-        return {"wkv": zeros(cfg.num_heads, Dh_r, Dh_r, dt=torch.float32),
+        return {"wkv": zeros(TP.cache_rwkv_heads(cfg), Dh_r, Dh_r,
+                             dt=torch.float32),
                 "shift_tm": zeros(d), "shift_cm": zeros(d)}
     if kind == "mamba":
         nh = cfg.n_ssm_heads
@@ -210,7 +212,7 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
         h = L.apply_norm(cfg, p["ln_x"], x)
         if cache is not None:
             xa = _cross_attn_cached(cfg, p["xattn"], h, cache["xk"],
-                                    cache["xv"])
+                                    cache["xv"], cache.get("xseq"))
         else:
             xa = _cross_attn(cfg, p["xattn"], h, enc_out)
         x = constrain(x + xa, "res")
@@ -219,61 +221,104 @@ def block_forward(cfg: LMConfig, kind: str, p: dict, x: torch.Tensor,
     raise ValueError(f"unknown block kind {kind!r}")
 
 
-def _unmasked_attn(cfg: LMConfig, q, k, v):
+def _unmasked_attn(cfg: LMConfig, q, k, v, q_per_kv: int):
     """Attention with no mask (the encoder's self-attention, the decoder's
     cross-attention; neither soft-caps, as in the reference).  q [B, H,
-    Sq, Dh], k / v [B, KV, Sk, Dh]: the flash kernel reads them
-    un-broadcast through its GQA map, the plain paths take them broadcast
-    to every query head.  One query row (a decode step's cross-attention)
-    stays plain, as decode does (``layers.py``)."""
+    Sq, Dh], k / v [B, KV, Sk, Dh], q head h reading KV head ``h //
+    q_per_kv``: the flash kernel reads them un-broadcast through its GQA
+    map, the plain paths take them broadcast to every query head.  One
+    query row (a decode step's cross-attention) stays plain, as decode
+    does (``layers.py``)."""
     flash = cfg.use_flash_kernel and q.shape[2] > 1
     if not flash:
-        k = L._broadcast_kv(k, cfg.q_per_kv)
-        v = L._broadcast_kv(v, cfg.q_per_kv)
+        k = L._broadcast_kv(k, q_per_kv)
+        v = L._broadcast_kv(v, q_per_kv)
     return L.attention(q, k, v, causal=False, impl=cfg.attn_impl,
                        chunk=cfg.attn_chunk, logit_dtype=cfg.logit_dtype,
                        use_flash=flash)
 
 
+def _split(cfg: LMConfig, p: dict, x: torch.Tensor, *more):
+    """Tensor parallelism for an unmasked attention: (the weights a rank
+    computes with, ``x`` and ``more`` entered through ``copy_in`` where
+    its heads split, the model axis, the heads, the q heads a KV head
+    serves) (``tensor_parallel.attn_heads``)."""
+    ax = TP.active(cfg)
+    heads = TP.attn_heads(cfg, ax)
+    p = TP.attn_weights(cfg, p, ax, heads)
+    if heads is not None:
+        x, *more = (TP.copy_in(t, ax.group) for t in (x, *more))
+    qpk = cfg.q_per_kv if heads is None else heads.q_per_kv
+    return p, x, more, ax, heads, qpk
+
+
+def _attn_out(p: dict, out, ax, heads):
+    """``out`` [B, H, S, Dh] through ``wo``, row-parallel where the
+    heads split."""
+    B, _, S, _ = out.shape
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    out = out @ p["wo"].to(out.dtype)
+    return out if heads is None else TP.reduce_out(out, [ax.group])
+
+
 def _noncausal_self_attn(cfg: LMConfig, p: dict, x: torch.Tensor):
-    """The encoder's self-attention.  It rotates q / k by RoPE at positions
-    ``arange(S)``, as the reference does (Whisper itself adds learned
-    positions to the frames)."""
+    """The encoder's self-attention, on the rank's heads under tensor
+    parallelism.  It rotates q / k by RoPE at positions ``arange(S)``, as
+    the reference does (Whisper itself adds learned positions to the
+    frames)."""
     B, S, _ = x.shape
+    p, x, _, ax, heads, qpk = _split(cfg, p, x)
     q, k, v = L._project_qkv(cfg, p, x)
     pos = torch.arange(S, device=x.device)[None, :]
     freqs = L.rope_freqs(cfg, x.device)
     q = L.apply_rope(q, pos, freqs).transpose(1, 2)
     k = L.apply_rope(k, pos, freqs).transpose(1, 2)
-    out = _unmasked_attn(cfg, q, k, v.transpose(1, 2))
-    out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"].to(out.dtype)
+    out = _unmasked_attn(cfg, q, k, v.transpose(1, 2), qpk)
+    return _attn_out(p, out, ax, heads)
 
 
 def _cross_attn(cfg: LMConfig, p: dict, x: torch.Tensor,
                 enc_out: torch.Tensor):
-    """Cross-attention to ``enc_out`` [B, T, d], K / V projected here."""
+    """Cross-attention to ``enc_out`` [B, T, d], K / V projected here (on
+    the rank's heads under tensor parallelism)."""
     B, S, _ = x.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
-    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, -1, KV, Dh)
-    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, -1, KV, Dh)
-    return _cross_attn_core(cfg, p, q, k.transpose(1, 2), v.transpose(1, 2))
+    Dh = cfg.head_dim
+    p, x, (enc_out,), ax, heads, qpk = _split(cfg, p, x, enc_out)
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, -1, Dh)
+    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, -1, q.shape[2] // qpk, Dh)
+    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, -1, q.shape[2] // qpk, Dh)
+    out = _unmasked_attn(cfg, q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), qpk)
+    return _attn_out(p, out, ax, heads)
 
 
 def _cross_attn_cached(cfg: LMConfig, p: dict, x: torch.Tensor,
-                       xk: torch.Tensor, xv: torch.Tensor):
-    """Cross-attention to the cached K / V [B, KV, T, Dh]."""
+                       xk: torch.Tensor, xv: torch.Tensor, xseq=None):
+    """Cross-attention to the cached K / V [B, KV, T, Dh]: the rank's KV
+    heads under tensor parallelism, or every KV head, of which the rank
+    reads those its q heads read; with ``xseq`` (a
+    ``tensor_parallel.SeqShard``) the rank's shard of the T frames, the
+    softmax split over the shards (``layers._masked_decode_attn``)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    return _cross_attn_core(cfg, p, q, xk, xv)
-
-
-def _cross_attn_core(cfg: LMConfig, p: dict, q, k, v):
-    B, S = q.shape[0], q.shape[1]
-    out = _unmasked_attn(cfg, q.transpose(1, 2), k, v)
-    out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"].to(out.dtype)
+    p, x, _, ax, heads, qpk = _split(
+        cfg, {k: p[k] for k in ("wq", "wo")}, x)
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, -1, cfg.head_dim)
+    q = q.transpose(1, 2)
+    if xseq is not None:
+        if heads is not None:
+            q = TP.gather_heads(q, ax)
+        valid = torch.ones(xk.shape[2], dtype=torch.bool, device=x.device)
+        out = L._masked_decode_attn(
+            cfg, q, L._broadcast_kv(xk, cfg.q_per_kv),
+            L._broadcast_kv(xv, cfg.q_per_kv), valid, seq=xseq)
+        if heads is not None:
+            out = out[:, heads.h0:heads.h1]
+    else:
+        if heads is not None and xk.shape[1] != heads.kv1 - heads.kv0:
+            xk = xk[:, heads.kv0:heads.kv1]
+            xv = xv[:, heads.kv0:heads.kv1]
+        out = _unmasked_attn(cfg, q, xk, xv, qpk)
+    return _attn_out(p, out, ax, heads)
 
 
 # --------------------------------------------------------------------------
@@ -288,9 +333,11 @@ def stack_params(cfg: LMConfig, gen, device, layout: Tuple[str, ...],
 
 
 def _index(tree, g: int):
+    """Group ``g`` of every tensor of a stacked tree (a cache's shard
+    descriptors pass as they are)."""
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
-    return tree[g]
+    return tree[g] if isinstance(tree, torch.Tensor) else tree
 
 
 def leaves(tree):

@@ -256,15 +256,24 @@ def test_accountant_counts_sends_as_permute():
 # where the compute splits (qwen2's 12 heads do not split 16 ways, so its
 # attention weights are still gathered over 'model'), the MLP / attention
 # outputs and the vocab-parallel embedding are summed over 'model', and
-# the last-position logits gathered; the sequence-sharded caches are
-# gathered as before
+# the last-position logits gathered; the sequence-sharded caches stay in
+# their shards: a decode step's attention sums its row max, its sum of
+# exp and its P V over 'model', and mixtral, whose 32 heads split 16
+# ways, gathers its q heads first
 LM_MESH = {
     ("qwen2-1.5b", "decode_32k", False): {
-        "bytes": 7992341760.0, "all-reduce": 1336320.0,
-        "all-gather": 7991005440.0},
+        "bytes": 948531840.0, "all-reduce": 3957120.0,
+        "all-gather": 944574720.0},
     ("mixtral-8x7b", "decode_32k", True): {
-        "bytes": 185106040560.0, "all-reduce": 7987440.0,
-        "all-gather": 185098053120.0},
+        "bytes": 181089462000.0, "all-reduce": 15974640.0,
+        "all-gather": 181073487360.0},
+}
+# the same records when every step gathered its sequence-sharded cache
+GATHERED_CACHE = {
+    ("qwen2-1.5b", "decode_32k", False): {
+        "all-reduce": 1336320.0, "all-gather": 7991005440.0},
+    ("mixtral-8x7b", "decode_32k", True): {
+        "all-reduce": 7987440.0, "all-gather": 185098053120.0},
 }
 
 
@@ -274,6 +283,38 @@ def test_lm_mesh_records_keep_their_collective_bytes(cell):
     rec = dryrun.run_cell(arch, shape, device="cpu", multi_pod=False,
                           moe_alltoall=a2a)
     assert rec["collective_bytes_per_chip"] == LM_MESH[cell]
+
+
+@pytest.mark.parametrize("cell", list(LM_MESH), ids=lambda c: c[0])
+def test_cache_gather_bytes_left_the_decode(cell):
+    """The pins' all-gather drop is the cache's gathered bytes, from its
+    leaves' shapes at the accountant's wire factor (every layer's k and v
+    gathered over 'model' from a rank's batch rows), less the q heads'
+    gather where they split; the all-reduce rise is the combine's three
+    float32 sums a layer, [B, H, 1] twice and [B, H, 1, Dh]."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.roofline import wire_bytes
+    from repro_torch.launch.specs import model_cfg_for
+    from repro_torch.models.tensor_parallel import ModelAxis, attn_heads
+    arch, shape, _ = cell
+    cfg = model_cfg_for(arch)
+    sc = get_shape(shape)
+    M, n_data = 16, 16
+    B = sc.global_batch // n_data
+    S_c = min(sc.seq_len, cfg.window) if cfg.attn_kind == "swa" else \
+        sc.seq_len
+    act = 2                                       # bfloat16
+    L, H, KV, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    assert KV % M and S_c % M == 0                # sequence-sharded
+    cache = L * 2 * wire_bytes("all-gather", B * KV * S_c * Dh * act, M)
+    q = 0.0
+    if attn_heads(cfg, ModelAxis(None, M, 0)) is not None:
+        q = L * wire_bytes("all-gather", B * H * Dh * act, M)
+    combine = L * wire_bytes("all-reduce", 4 * (2 * B * H + B * H * Dh), M)
+    old, new = GATHERED_CACHE[cell], LM_MESH[cell]
+    assert old["all-gather"] - new["all-gather"] == cache - q
+    assert new["all-reduce"] - old["all-reduce"] == combine
 
 
 # --------------------------------------------------------------------------
