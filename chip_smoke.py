@@ -37,9 +37,8 @@ result line) as soon as a phase fails:
            ``pairwise.cu`` timed both ways beside this one, in turns
            (``parent_ms``, ``parent_graph_ms``)
   check    (a) engine "device" (plain plane) gives equal labels and core
-           flags; (b) core flags and the nearest-core rule recomputed in
-           float64 for sampled points against all points; (c) the same
-           generator at n = 20,000 conformant to the port's brute engine
+           flags; (b) the same generator at n = 20,000 conformant to the
+           port's brute engine
   serve    the fitted index on the same data: ``cluster(...,
            return_index=True)`` (fit and attach timed apart), eight
            batches of 2,048 mixed queries in each predict mode (device
@@ -50,6 +49,20 @@ result line) as soon as a phase fails:
            device-resident twin (equal after every step) and a third with
            the resident stages' gates at 0, each stage's flat-gather and host-twin runs
            counted, and a snapshot round trip
+  brute    the chunked float64 brute DBSCAN on the card
+           (``core/validate.py::check_conformant_brute``: torch
+           primitives only, nothing of the code under test, no
+           tolerance) over (a) the cold fit of phase ``fit``, every one
+           of its points, and (b) the device-plane index after the last
+           mutation step of phase ``serve``, over its live points,
+           labels and core flags: core flags equal, the core partition
+           identical, noise sets identical, every border valid, labels
+           equal on every uncontested point; each check's pairs per
+           sweep, core-core pairs, propagation rounds, contested points
+           and seconds per stage.  The sharded and mesh fits are held
+           raw-equal to the single-device fit on the card (phases
+           ``sharded`` and ``mesh``), so (a) covers them too; no kernel
+           is launched
   server   the serve phase's index through ``snapshot()``, restored
            twice, behind two ``ClusterServer``s (8 slots of 2,048
            queries) on one scripted stream from ``--seed``: 48 predict
@@ -319,7 +332,8 @@ server phase, the sharded phase, the mesh phase (its ranks' counts,
 each read in the rank's own process, and the cluster dry run's), the lm
 phase, the families phase
 and the train phase (which must launch none); phases syncs and cost drive
-no new path (their runs count in ``launches_script`` only).
+no new path (their runs count in ``launches_script`` only), and phase
+brute launches no kernel at all.
 
 The line before the last but one is the kernels' summary object, the
 line before the last is the card's name and power limit as nvidia-smi
@@ -1010,54 +1024,6 @@ def kernels_phase(captured, dev, baseline=None):
 
 
 # --------------------------------------------------------------------------
-# float64 recomputation on the card
-# --------------------------------------------------------------------------
-
-def check_sampled(pts64, labels, core, eps, seed, dev, n_sample=2000):
-    """Recompute, in float64 against all points, the core flag of
-    ``n_sample`` sampled points and the nearest-core rule of
-    ``n_sample`` sampled non-core points."""
-    n = pts64.shape[0]
-    eps2 = eps * eps
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    idx = torch.randperm(n, generator=gen)[:n_sample].to(dev)
-    bad_core = 0
-    for s in range(0, idx.numel(), 64):
-        q = pts64[idx[s:s + 64]]
-        d2 = ((q[:, None, :] - pts64[None, :, :]) ** 2).sum(-1)
-        want = (d2 <= eps2).sum(1) >= MIN_PTS
-        bad_core += int((want != core[idx[s:s + 64]]).sum().item())
-    require(bad_core == 0, f"{bad_core} sampled core flags differ from the "
-            f"float64 recomputation")
-
-    noncore = torch.nonzero(~core)[:, 0]
-    pick = noncore[torch.randperm(noncore.numel(), generator=gen)[:n_sample]
-                   .to(dev)]
-    cpts, clab = pts64[core], labels[core]
-    bad_border, ties = 0, 0
-    for s in range(0, pick.numel(), 64):
-        rows = pick[s:s + 64]
-        d2 = ((pts64[rows][:, None, :] - cpts[None, :, :]) ** 2).sum(-1)
-        dmin = d2.min(dim=1).values
-        at_min = d2 == dmin[:, None]
-        lab = labels[rows]
-        # clusters that own a core point at the minimum distance
-        lo = torch.where(at_min, clab[None, :], torch.iinfo(clab.dtype).max
-                         ).min(dim=1).values
-        hi = torch.where(at_min, clab[None, :], -1).max(dim=1).values
-        tie = lo != hi
-        ties += int(tie.sum().item())
-        reach = dmin <= eps2
-        member = (at_min & (clab[None, :] == lab[:, None])).any(dim=1)
-        ok = torch.where(reach, member, lab == -1)
-        bad_border += int((~ok).sum().item())
-    require(bad_border == 0, f"{bad_border} sampled non-core points break "
-            f"the nearest-core rule")
-    return dict(core_sampled=int(idx.numel()),
-                noncore_sampled=int(pick.numel()), cluster_ties=ties)
-
-
-# --------------------------------------------------------------------------
 # serve: the fitted index
 # --------------------------------------------------------------------------
 
@@ -1377,6 +1343,47 @@ def serve_phase(pts, eps, caps, fit_labels, seed, dev):
     carry = dict(fit_snap=fit_snap, batches=batches, host=host,
                  stream=record)
     return summary, launches, captured[0], idx, carry
+
+
+# --------------------------------------------------------------------------
+# brute: the float64 brute DBSCAN on the card
+# --------------------------------------------------------------------------
+
+def brute_phase(pts, eps, fit, index, dev):
+    """Phase ``brute``: ``check_conformant_brute`` on the card over (a)
+    the cold fit (``fit``: its labels and core flags) and (b) ``index``,
+    the device plane after phase serve's last mutation step (its live
+    points, labels and core flags by arrival).  Each check raises on a
+    failure; each report's counts must agree with the labelling's own.
+    No kernel may launch (the check uses torch primitives only)."""
+    from repro_torch.core.validate import check_conformant_brute
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    out = {}
+    live = (index.points_arrival(), index.labels_arrival(),
+            index.core_arrival())
+    for tag, (p, lab, core) in (("fit", (pts, fit.labels, fit.core)),
+                                ("mutated_index", live)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = check_conformant_brute(p, eps, MIN_PTS, lab, core, device=dev)
+        rep["check_s"] = time.perf_counter() - t0
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        require(rep["n"] == len(lab) and rep["cores"] == int(core.sum())
+                and rep["clusters"] == len(np.unique(lab[lab >= 0]))
+                and rep["noise"] == int((lab < 0).sum()),
+                f"brute/{tag}: the report's counts differ from the "
+                f"labelling's: {rep}")
+        out[tag] = rep
+    require(dict(ops.LAUNCHES) == before, "brute: the check launched a "
+            "kernel of the code under test")
+    out["mutated_index"]["dead_rows"] = int(index.n - index.n_live)
+    return dict(out, checks="core flags equal, core partition identical, "
+                            "noise sets identical, borders valid, labels "
+                            "equal on uncontested points; float64, no "
+                            "tolerance")
 
 
 # --------------------------------------------------------------------------
@@ -2558,6 +2565,9 @@ def _mesh_serve(mesh, dev, cfg, k, batch, toks, max_len, seed):
             torch.cuda.synchronize()
         dist.barrier()
     placed_bytes = torch.cuda.memory_allocated()
+    # rank 0 alone keeps its whole params (one device's run below)
+    kept_bytes = 0 if params is None else sum(
+        t.numel() * t.element_size() for t in flatten(params)[0])
     pb = shd.place_tree(batch, shd.batch_shardings(cfg, mesh, batch))
     whole = init_cache(cfg, batch["tokens"].shape[0], max_len, dev)
     pc = shd.place_tree(whole, shd.cache_shardings(cfg, mesh, whole))
@@ -2608,6 +2618,7 @@ def _mesh_serve(mesh, dev, cfg, k, batch, toks, max_len, seed):
                cache_gathers=sum(d in kv_dims for d in gathers.dims),
                flash_shapes=shapes, launches=launches,
                allocated_after_placing=placed_bytes,
+               whole_params_kept=kept_bytes,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     del placed, pc, pb, c, back, leaves
     torch.cuda.empty_cache()
@@ -2897,11 +2908,18 @@ def _mesh_seq_check(ranks, smi, t_script):
             else dict(key="num_layers", published=_model_layers(arch),
                       run=layers, why=why),
             max_rel_err=max(errs),
+            # every rank's bytes after placing, and without the whole
+            # params rank 0 keeps for its one-device run: its shards
+            allocated_after_placing=[r["tp"]["seq"][arch][
+                "allocated_after_placing"] for r in ranks],
+            placed_after_placing=[r["tp"]["seq"][arch][
+                "allocated_after_placing"] - r["tp"]["seq"][arch][
+                "whole_params_kept"] for r in ranks],
             per_rank=[{k: r["tp"]["seq"][arch][k] for k in (
                 "prefill_s", "decode_step_s", "sent_prefill",
                 "sent_prefill_decode", "cache_local", "decode_gathers",
                 "cache_gathers", "allocated_after_placing",
-                "max_memory_allocated")} | dict(
+                "whole_params_kept", "max_memory_allocated")} | dict(
                 flash_launches=r["tp"]["seq"][arch]["launches"][
                     "flash_attention"]) for r in ranks],
             flash_calls=sorted({tuple(c) for c in ranks[0]["tp"]["seq"][
@@ -5118,10 +5136,6 @@ def main() -> int:
             "engine 'device' (plain plane) gives other labels")
     require(np.array_equal(plain.core, res.core),
             "engine 'device' (plain plane) gives other core flags")
-    sampled = check_sampled(
-        torch.as_tensor(pts, dtype=torch.float64).to(dev),
-        torch.as_tensor(res.labels).to(dev), torch.as_tensor(res.core).to(dev),
-        eps, args.seed, dev)
     t0 = time.perf_counter()
     small, small_eps = make_points(20_000, args.seed + 1)
     got = cluster(small, small_eps, MIN_PTS, engine="device-kernels")
@@ -5130,7 +5144,7 @@ def main() -> int:
                              got.labels, core=ref.core)
     require(np.array_equal(got.core, ref.core),
             "core flags differ from brute at n = 20,000")
-    emit("check", plain_plane_equal=True, plain_plane_s=plain_s, **sampled,
+    emit("check", plain_plane_equal=True, plain_plane_s=plain_s,
          brute_n=20_000, brute_eps=small_eps, brute_clusters=ref.n_clusters,
          brute_s=time.perf_counter() - t0)
 
@@ -5154,6 +5168,10 @@ def main() -> int:
                                                                      pvb)))
     emit("serve", **serve, launches=serve_launches,
          predict_row_min=predict_row_min)
+
+    # ---- brute ------------------------------------------------------------
+    emit("brute", **brute_phase(pts, eps, res, index, dev),
+         script_s=time.perf_counter() - t_script)
 
     # ---- server ---------------------------------------------------------
     before_server = dict(ops.LAUNCHES)  # server_phase resets the counts

@@ -50,14 +50,22 @@ def axis_size(mesh, name: str) -> int:
 
 
 def _device_type(device) -> str:
-    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+    """``None`` is the card (the port's device rule: it raises without
+    one); otherwise the type of the device given."""
+    from ..engine.adaptive import resolve_device
+    return "cuda" if resolve_device(device).type == "cuda" else "cpu"
 
 
-def make_mesh(shape, names, device="cpu"):
+def make_mesh(shape, names, device=None):
     """A ``DeviceMesh`` of ``shape`` over ranks ``0 .. prod(shape) - 1``
     of the default process group, rank-major (the last dim varies
-    fastest, as ``jax.make_mesh`` lays its devices)."""
+    fastest, as ``jax.make_mesh`` lays its devices).  ``device=None``
+    lays it over the CUDA devices and raises when there is none, as the
+    reference's meshes lie over the devices that exist; pass ``"cpu"``
+    for a mesh of CPU ranks."""
     from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = _device_type(device)
 
     n = 1
     for s in shape:
@@ -66,12 +74,12 @@ def make_mesh(shape, names, device="cpu"):
     if n != world:
         raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks, the "
                          f"process group has {world}")
-    return DeviceMesh(_device_type(device),
+    return DeviceMesh(device_type,
                       torch.arange(n).reshape(tuple(shape)),
                       mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cpu"):
+def make_production_mesh(*, multi_pod: bool = False, device=None):
     """(16, 16) ("data", "model") or (2, 16, 16) ("pod", "data",
     "model"), over a process group of 256 / 512 ranks (the dry run's
     :func:`fake_world`)."""
@@ -80,15 +88,15 @@ def make_production_mesh(*, multi_pod: bool = False, device="cpu"):
     return make_mesh(shape, axes, device)
 
 
-def make_host_mesh(model_axis: int = 1, device_type: str = "cpu"):
+def make_host_mesh(model_axis: int = 1, device=None):
     """``(world // model_axis, model_axis)`` over every rank of the
-    process group that exists."""
+    process group that exists (``device`` as in :func:`make_mesh`)."""
     n = dist.get_world_size()
     if n % model_axis:
         raise ValueError(f"model_axis {model_axis} does not divide the "
                          f"world of {n} ranks")
     return make_mesh((n // model_axis, model_axis), ("data", "model"),
-                     device_type)
+                     device)
 
 
 def init_world(backend: str, *, device=None, store_path: Optional[str] = None,

@@ -58,23 +58,25 @@ def _ns(mesh, *spec) -> NamedSharding:
     return NamedSharding(mesh, tuple(_entry(e) for e in spec))
 
 
+def _keyed_into(t, path: str, out: list) -> None:
+    # module-level, as train/tree.py's walks: a self-calling closure would
+    # hold ``out`` (and so every leaf) in a cycle until the collector runs
+    if t is None:
+        return
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _keyed_into(t[k], f"{path}['{k}']", out)
+    elif isinstance(t, (tuple, list)):
+        for i, v in enumerate(t):
+            _keyed_into(v, f"{path}[{i}]", out)
+    else:
+        out.append((path, t))
+
+
 def keyed_leaves(tree) -> Tuple[List[Tuple[str, Any]], Any]:
     """``([(keystr path, leaf)], structure)`` in ``flatten`` order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(t, path):
-        if t is None:
-            return
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], f"{path}['{k}']")
-        elif isinstance(t, (tuple, list)):
-            for i, v in enumerate(t):
-                walk(v, f"{path}[{i}]")
-        else:
-            out.append((path, t))
-
-    walk(tree, "")
+    _keyed_into(tree, "", out)
     return out, flatten(tree)[1]
 
 
@@ -337,11 +339,15 @@ def place_tree(tree, shardings):
 
     leaves, structure = flatten(tree)
     shs = flatten_up_to(structure, shardings)
-    return unflatten(structure, [
-        distribute_tensor(t, sh.mesh, placements(sh.mesh, sh.spec),
-                          src_data_rank=None)
-        if isinstance(t, torch.Tensor) else t
-        for t, sh in zip(leaves, shs)])
+    out = [distribute_tensor(t, sh.mesh, placements(sh.mesh, sh.spec),
+                             src_data_rank=None)
+           if isinstance(t, torch.Tensor) else t
+           for t, sh in zip(leaves, shs)]
+    # ``distribute_tensor`` leaves this frame referenced from a cycle
+    # until the collector runs: drop the whole tensors from it, so that
+    # a caller who drops its tree frees them at once
+    del tree, leaves
+    return unflatten(structure, out)
 
 
 def gather_leaf(t, keep=lambda name, placement: False):

@@ -14,42 +14,58 @@ from typing import Any, Callable, List, Tuple
 
 _LEAF = object()          # a leaf's place in a structure
 
+# The walks are module-level functions with the accumulator passed in: a
+# nested function that calls itself is a reference cycle (function ->
+# closure cell -> function) that would hold the leaves it collected until
+# the cyclic collector runs, so a dropped tree's tensors stayed allocated.
+
+
+def _flatten_into(t, leaves: List[Any]):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_flatten_into(v, leaves) for v in t)
+    leaves.append(t)
+    return _LEAF
+
 
 def flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, structure): the structure is the tree with every leaf
     replaced by a marker and every dict's keys sorted."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (tuple, list)):
-            return type(t)(walk(v) for v in t)
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(s, it):
+    if s is _LEAF:
+        return next(it)
+    if s is None:
+        return None
+    if isinstance(s, dict):
+        return {k: _build(v, it) for k, v in s.items()}
+    return type(s)(_build(v, it) for v in s)
 
 
 def unflatten(structure, leaves) -> Any:
     """The inverse of :func:`flatten`."""
     it = iter(leaves)
-
-    def build(s):
-        if s is _LEAF:
-            return next(it)
-        if s is None:
-            return None
-        if isinstance(s, dict):
-            return {k: build(v) for k, v in s.items()}
-        return type(s)(build(v) for v in s)
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def _up_to(s, t, out: List[Any]) -> None:
+    if s is _LEAF:
+        out.append(t)
+    elif isinstance(s, dict):
+        for k, v in s.items():
+            _up_to(v, t[k], out)
+    elif s is not None:
+        for v, u in zip(s, t):
+            _up_to(v, u, out)
 
 
 def flatten_up_to(structure, tree) -> List[Any]:
@@ -57,18 +73,7 @@ def flatten_up_to(structure, tree) -> List[Any]:
     order (adafactor's per-leaf slot dicts; ``flatten_up_to`` of a
     ``PyTreeDef``)."""
     out: List[Any] = []
-
-    def walk(s, t):
-        if s is _LEAF:
-            out.append(t)
-        elif isinstance(s, dict):
-            for k, v in s.items():
-                walk(v, t[k])
-        elif s is not None:
-            for v, u in zip(s, t):
-                walk(v, u)
-
-    walk(structure, tree)
+    _up_to(structure, tree, out)
     return out
 
 

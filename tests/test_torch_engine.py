@@ -296,7 +296,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(ROOT.rglob("*.py"))
-                         + [REPO / "chip_smoke.py"],
+                         + [REPO / "chip_smoke.py"]
+                         + sorted(REPO.glob("examples/torch_*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_neither_jax_nor_repro(path):
     roots = set(_imported_roots(path))

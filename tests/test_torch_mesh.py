@@ -121,7 +121,7 @@ def _rank_work(rank, world, dev, ckpt_dir):
     from repro_torch.train import init_state, make_train_step
     from repro_torch.train.tree import flatten
 
-    mesh = make_host_mesh(2)
+    mesh = make_host_mesh(2, "cpu")
     out = {"coord": list(mesh.get_coordinate())}
     # a ("data", "model")-sharded dim is data-major
     t = shd.place_tree({"x": torch.arange(32.).reshape(8, 4)},
@@ -152,7 +152,7 @@ def _rank_work(rank, world, dev, ckpt_dir):
     # (b) the MoE variants, and moe_forward's dispatch
     out["moe"] = []
     for E, shape, fn in MOE_CASES:
-        m = make_mesh(shape, ("data", "model"))
+        m = make_mesh(shape, ("data", "model"), "cpu")
         p, x = _moe_inputs(E)
         p = {k: torch.from_numpy(v) for k, v in p.items()}
         nd = shape[0]
@@ -489,3 +489,38 @@ def test_dryrun_mesh_records(argv, tmp_path):
         assert r["param_bytes_per_rank"] == _param_bytes(
             argv[1], meshes[r["mesh"]], "--moe-alltoall" in argv)
         assert r["memory"]["argument_size"] >= r["param_bytes_per_rank"]
+
+
+@pytest.mark.parametrize("make", ["make_mesh", "make_production_mesh",
+                                  "make_host_mesh"])
+def test_mesh_constructors_default_to_the_card_and_raise_without_one(
+        make, monkeypatch):
+    """``device=None`` is the card, as at every entry point: without one
+    each constructor raises the port's error; with
+    ``torch.cuda.is_available`` patched true it lays a ``"cuda"`` mesh
+    (``DeviceMesh`` recorded, not built: no process group starts)."""
+    import torch.distributed as dist
+    import torch.distributed.device_mesh as dm
+    from repro_torch.launch import mesh as M
+    world = {"make_mesh": 4, "make_production_mesh": 256,
+             "make_host_mesh": 4}[make]
+    call = {"make_mesh": lambda **kw: M.make_mesh((2, 2), ("data", "model"),
+                                                  **kw),
+            "make_production_mesh": lambda **kw: M.make_production_mesh(**kw),
+            "make_host_mesh": lambda **kw: M.make_host_mesh(2, **kw)}[make]
+    made = []
+    monkeypatch.setattr(dm, "DeviceMesh",
+                        lambda kind, ranks, mesh_dim_names: made.append(
+                            (kind, tuple(ranks.shape), mesh_dim_names)))
+    monkeypatch.setattr(dist, "get_world_size", lambda: world)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert made == []
+    call(device="cpu")
+    assert made[-1][0] == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    call()
+    assert made[-1][0] == "cuda"
+    assert made[-1][1] == {4: (2, 2), 256: (16, 16)}[world]
+    assert made[-1][2] == ("data", "model")

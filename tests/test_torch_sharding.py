@@ -276,7 +276,40 @@ def test_state_specs_equal_reference(arch):
 def fake_mesh():
     from repro_torch.launch.mesh import fake_world, make_mesh
     with fake_world(4):
-        yield make_mesh((2, 2), ("data", "model"))
+        yield make_mesh((2, 2), ("data", "model"), "cpu")
+
+
+@pytest.mark.parametrize("walk", ["flatten", "unflatten", "flatten_up_to",
+                                  "tree_map", "keyed_leaves", "place_tree"])
+def test_a_dropped_tree_frees_its_tensors_at_once(walk, fake_mesh):
+    """No walk over a tree keeps its leaves in a reference cycle: with the
+    cyclic collector off, a tree the caller drops is freed at once (a
+    self-calling closure held every leaf it collected, so on the card a
+    rank's whole params stayed allocated after ``place_tree`` until the
+    collector ran)."""
+    import gc
+    import weakref
+    from repro_torch.train import tree as T
+    cfg = model_cfg_for("qwen2-1.5b", smoke=True)
+    sh = tshd.param_shardings(cfg, fake_mesh, tinit_params(cfg, None, "meta"))
+    # torch keeps the frame of a process's first distribute_tensor call
+    tshd.place_tree(tinit_params(cfg, torch.Generator().manual_seed(1),
+                                 "cpu"), sh)
+    gc.disable()
+    try:
+        params = tinit_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        refs = [weakref.ref(t) for t in T.flatten(params)[0]]
+        leaves, structure = T.flatten(params)
+        out = {"flatten": lambda: T.flatten(params),
+               "unflatten": lambda: T.unflatten(structure, leaves),
+               "flatten_up_to": lambda: T.flatten_up_to(structure, params),
+               "tree_map": lambda: T.tree_map(torch.neg, params),
+               "keyed_leaves": lambda: tshd.keyed_leaves(params),
+               "place_tree": lambda: tshd.place_tree(params, sh)}[walk]()
+        del params, leaves, out
+        assert sum(r() is not None for r in refs) == 0
+    finally:
+        gc.enable()
 
 
 def test_placements_on_a_4_rank_mesh(fake_mesh):

@@ -319,9 +319,9 @@ def _families_on_mesh(mesh):
 def _rank_work(rank, world, dev, inp):
     torch.set_num_threads(2)
     from repro_torch.launch.mesh import make_mesh
-    out = {name: _on_mesh(make_mesh(shape, ("data", "model")), inp)
+    out = {name: _on_mesh(make_mesh(shape, ("data", "model"), "cpu"), inp)
            for name, shape in MESHES.items()}
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     out["moe"] = [_moe_grads(mesh, E, fn) for E, fn in MOE_GRAD_CASES]
     out["families"] = _families_on_mesh(mesh)
     return out
@@ -659,7 +659,7 @@ def _dot_flops(shape, mesh_shape):
         return dryrun.count_cell(fn, args)[1]["dot_flops"]
     n = int(np.prod(mesh_shape))
     with fake_world(n):
-        mesh = make_mesh(mesh_shape, ("data", "model"))
+        mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
         try:
             fn, args, _ = build_cell(ARCH, shape, device="cpu", smoke=True,
                                      mesh=mesh)

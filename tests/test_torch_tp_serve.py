@@ -261,7 +261,7 @@ def _train_batch(cfg, seed):
 def _rank_work(rank, world, dev, _):
     torch.set_num_threads(2)
     from repro_torch.launch.mesh import make_mesh
-    meshes = {name: make_mesh(shape, ("data", "model"))
+    meshes = {name: make_mesh(shape, ("data", "model"), "cpu")
               for name, shape in MESHES.items()}
     out = {"seq": {}, "families": {}, "train": {}}
     for name, (arch, shape, kw, batch, prompt, decode, S_c) in \
@@ -564,7 +564,7 @@ def _dot_flops(arch, shape, mesh_shape):
         fn, args, _ = build_cell(arch, shape, device="cpu", smoke=True)
         return dryrun.count_cell(fn, args)[1]["dot_flops"]
     with fake_world(int(np.prod(mesh_shape))):
-        mesh = make_mesh(mesh_shape, ("data", "model"))
+        mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
         try:
             fn, args, _ = build_cell(arch, shape, device="cpu", smoke=True,
                                      mesh=mesh)
