@@ -1,0 +1,148 @@
+"""``run.py`` refuses to run without a card or without the program, and
+the rest of a run, driven on the CPU at a small size, comes out correct
+on the sound program and not correct with the timed path broken
+underneath: a label altered where it is produced, a fit that returns an
+earlier state unchanged, half of the points left out."""
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+
+from gritbench import harness  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "gritbench"))
+import run as run_py  # noqa: E402
+
+
+def _no_result(out: str) -> bool:
+    for line in out.splitlines():
+        try:
+            json.loads(line)
+        except ValueError:
+            continue
+        return False
+    return True
+
+
+def test_run_without_a_card_fails_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    p = subprocess.run([sys.executable, "gritbench/run.py", "--workload",
+                        "fit.ss-varden-3d", "--seed", "1", "--seconds", "1",
+                        "--trace", "0"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode != 0
+    assert _no_result(p.stdout)
+    assert "no CUDA device" in p.stderr
+
+
+def test_run_with_only_the_benchmark_files_fails(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(ROOT / "gritbench", tmp_path / "gritbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    p = subprocess.run([sys.executable, "gritbench/run.py", "--workload",
+                        "fit.ss-varden-3d", "--seed", "1", "--seconds", "1",
+                        "--trace", "0"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode != 0
+    assert _no_result(p.stdout)
+
+
+#: eps and MinPts by d at 3,000 points: cores, borders and noise all occur
+SMALL = {3: (300.0, 40), 5: (120.0, 10)}
+
+
+def small(name):
+    """The cell at 3,000 points, with eps and MinPts cut with it."""
+    cell = harness.find_cell(name)
+    eps, min_pts = SMALL[int(cell.config["d"])]
+    cell.config = dict(cell.config, n=3000, eps=eps, min_pts=min_pts)
+    return cell
+
+
+def go(name, seed=2 ** 31 + 3):
+    return run_py.run_cell(name, seed, 1.0, False, device="cpu",
+                           cell=small(name))
+
+
+@pytest.mark.parametrize("name", ["fit.ss-varden-3d", "fit.ss-simden-5d"])
+def test_the_sound_program_is_correct(name):
+    out = go(name)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] >= 1 and out["failed"] == 0
+    assert all(c["value"] <= c["limit"] for c in out["checks"].values())
+    e2e = {m["name"] for m in small(name).end_to_end}
+    assert set(out["metrics"]) == e2e
+
+
+@pytest.fixture
+def engine(monkeypatch):
+    import repro_torch.engine as eng
+    return monkeypatch, eng
+
+
+def test_a_label_altered_where_it_is_produced_fails(engine):
+    monkeypatch, eng = engine
+    real = eng.cluster
+
+    def altered(*a, **k):
+        res = real(*a, **k)
+        i = int(np.flatnonzero(res.core)[0])
+        res.labels = res.labels.copy()
+        res.labels[i] = res.labels.max() + 1
+        return res
+    monkeypatch.setattr(eng, "cluster", altered)
+    out = go("fit.ss-varden-3d")
+    assert not out["correct"] and out["failed"] >= 1
+    assert out["checks"]["label_errors"]["value"] >= 1
+
+
+def test_a_fit_that_returns_its_last_state_unchanged_fails(engine):
+    monkeypatch, eng = engine
+    real = eng.cluster
+    first = []
+
+    def stale(*a, **k):
+        if not first:
+            first.append(real(*a, **k))
+        return first[0]
+    monkeypatch.setattr(eng, "cluster", stale)
+    out = go("fit.ss-varden-3d")
+    assert not out["correct"]
+
+
+def test_half_of_the_points_left_out_fails(engine):
+    monkeypatch, eng = engine
+    real = eng.cluster
+
+    def half(x, *a, **k):
+        m = (len(x) + 1) // 2
+        res = real(x[:m], *a, **k)
+        res.labels = np.concatenate([res.labels,
+                                     np.full(len(x) - m, -1, np.int64)])
+        res.core = np.concatenate([res.core, np.zeros(len(x) - m, bool)])
+        return res
+    monkeypatch.setattr(eng, "cluster", half)
+    out = go("fit.ss-varden-3d")
+    assert not out["correct"] and out["failed"] >= 1
+
+
+@pytest.mark.gpu
+def test_a_short_run_on_the_card_is_correct_and_the_control_is_not():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gritbench import control
+    out = run_py.run_cell("fit.ss-varden-3d", 7, 1.0, False, device="cuda",
+                          cell=small("fit.ss-varden-3d"))
+    assert out["correct"] and out["device"]["platform"] == "gpu"
+    nums = control.control_numbers(small("fit.ss-varden-3d"), 7, "cuda")
+    assert nums["core_flag_errors"] + nums["label_errors"] > 0
