@@ -68,7 +68,7 @@ from .grids import build_grids_device, DeviceGrids
 from .grid_tree import device_neighbor_table
 from .merging import fast_merging_batch
 from .labels import label_propagation
-from .sync import count_read, host_read, stage_mark, stage_start
+from .sync import SPANS, count_read, host_read, stage_mark, stage_start
 from ..kernels import ops as kernel_ops
 
 PAD_COORD = 1e15
@@ -231,6 +231,15 @@ def device_dbscan(points: torch.Tensor, eps: float, min_pts: int,
                   ) -> DeviceDBSCANResult:
     """Exact GriT-DBSCAN on the device of ``points`` ([n, d] float32).
     Labels in original point order."""
+    try:
+        return _pipeline(points, eps, min_pts, caps, point_valid)
+    finally:
+        SPANS.close()    # the stage span an error left open
+
+
+def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
+              caps: GritCaps, point_valid: Optional[torch.Tensor]
+              ) -> DeviceDBSCANResult:
     n, d = points.shape
     dev = points.device
     eps = float(eps)

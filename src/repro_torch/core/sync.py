@@ -5,6 +5,12 @@ data-dependent trip count, an overflow report) reads it through
 :func:`host_read`, which blocks until the device has produced it.
 ``READS["count"]`` therefore is the number of host synchronisations a
 fit made, which the on-card smoke run reports.
+
+The stage marks of the pipeline serve two timings.  ``TIMING`` /
+``STAGES`` (off by default) wait for the device at every mark.  With
+the tracer on (``repro_torch.obs``), each stage is a span
+``device_dbscan.<stage>`` whose ``args.device_ms`` comes from CUDA
+events recorded at the marks without a wait.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import time
 from typing import Dict
 
 import torch
+
+from ..obs.trace import Stages
 
 READS: Dict[str, int] = {"count": 0}
 
@@ -36,21 +44,30 @@ TIMING: Dict[str, bool] = {"on": False}
 STAGES: Dict[str, float] = {}
 _last: Dict[str, float] = {"t": 0.0}
 
+#: the pipeline's stages in the order of their marks
+STAGE_ORDER = ("grids", "neighbors", "core", "merge", "components",
+               "border", "labels")
+SPANS = Stages("device_dbscan", STAGE_ORDER)
+
 
 def stage_start(device: torch.device) -> None:
-    """Open a timed pipeline run (no-op unless ``TIMING["on"]``)."""
+    """Open a timed pipeline run: ``TIMING``'s clock, and the first
+    stage's span while tracing is on."""
     if TIMING["on"]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         _last["t"] = time.perf_counter()
+    SPANS.start(device)
 
 
 def stage_mark(name: str, device: torch.device) -> None:
-    """Close stage ``name``: add the seconds since the previous mark to
-    ``STAGES[name]`` (no-op unless ``TIMING["on"]``)."""
+    """Close stage ``name`` (the next of ``STAGE_ORDER``): add the
+    seconds since the previous mark to ``STAGES[name]`` when
+    ``TIMING["on"]``, and close its span while tracing is on."""
     if TIMING["on"]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         now = time.perf_counter()
         STAGES[name] = STAGES.get(name, 0.0) + now - _last["t"]
         _last["t"] = now
+    SPANS.mark(device)

@@ -247,10 +247,11 @@ def estimate_caps(points: np.ndarray, eps: float, min_pts: int,
     """
     pts = np.asarray(points)
     n, d = pts.shape
-    num_grids, max_occ = grid_stats(pts, eps, point_valid)
-    cand_max = candidate_census(pts, eps, min_pts, point_valid)
-    return _caps_from_stats(n, d, num_grids, max_occ, cand_max,
-                            margin, extra_grids, use_kernels)
+    with obs.span("adaptive.estimate_caps", n=n, d=d):
+        num_grids, max_occ = grid_stats(pts, eps, point_valid)
+        cand_max = candidate_census(pts, eps, min_pts, point_valid)
+        return _caps_from_stats(n, d, num_grids, max_occ, cand_max,
+                                margin, extra_grids, use_kernels)
 
 
 def _shard_point_sets(points: np.ndarray, eps: float, n_shards: int):
@@ -370,13 +371,22 @@ def adaptive_loop(run, grow, describe, caps, max_retries: int):
     until the grids fit.  ``halo`` is measured from the raw points and
     stays trustworthy, so it keeps growing alongside ``grid``.
 
+    Each attempt is a span ``adaptive.attempt`` (args ``index``,
+    ``overflow``, ``kept``) that ends with the report's read, so it
+    covers the attempt's device work with no added wait.
+
     Returns (result, attempts); raises :class:`CapOverflowError` with
     the full real attempt trail on exhaustion or clamp.
     """
     attempts: List[dict] = []
-    for _ in range(max_retries + 1):
-        result, report = run(caps)
-        overflowed = report.overflowing()
+    for i in range(max_retries + 1):
+        with obs.span("adaptive.attempt", index=i) as sp:
+            result, report = run(caps)
+            overflowed = report.overflowing()
+            sp.set(overflow=list(overflowed), kept=not overflowed)
+            # the report's read waited for the stream: the stage
+            # events of the attempt have completed
+            obs.resolve_device_times()
         attempts.append({"caps": describe(caps), "overflow": overflowed})
         obs.counter("adaptive.attempts").inc()
         if not overflowed:
@@ -428,16 +438,17 @@ def adaptive_device_dbscan(points, eps: float, min_pts: int,
     Raises :class:`CapOverflowError` if ``max_retries`` growth rounds do
     not suffice (geometric growth makes that pathological).
     """
-    if isinstance(points, torch.Tensor):
-        pts = points.to(torch.float32)
-        host_pts = None
-    else:
-        host_pts = np.asarray(points)
-        pts = torch.as_tensor(host_pts, dtype=torch.float32).to(
-            resolve_device(device))
-    if point_valid is not None:
-        point_valid = torch.as_tensor(point_valid, dtype=torch.bool).to(
-            pts.device)
+    with obs.span("adaptive.upload"):
+        if isinstance(points, torch.Tensor):
+            pts = points.to(torch.float32)
+            host_pts = None
+        else:
+            host_pts = np.asarray(points)
+            pts = torch.as_tensor(host_pts, dtype=torch.float32).to(
+                resolve_device(device))
+        if point_valid is not None:
+            point_valid = torch.as_tensor(point_valid, dtype=torch.bool).to(
+                pts.device)
     n, d = pts.shape
     if caps is None:
         if host_pts is None:

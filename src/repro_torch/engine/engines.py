@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core.dbscan import brute_dbscan, grit_dbscan
 from ..core.validate import core_flags
 
@@ -127,26 +128,28 @@ def _device_impl(points, eps, min_pts, name: str, *, device=None, caps=None,
     """
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    pts = np.asarray(points, np.float32)
-    n, d = pts.shape
-    _check_device_grid_range(pts, eps)
-    n_pad = _pad_bucket(n, pad_quantum)
-    padded = np.zeros((n_pad, d), np.float32)
-    padded[:n] = pts
-    valid = np.arange(n_pad) < n
+    with obs.span("engine.cluster.prepare"):
+        pts = np.asarray(points, np.float32)
+        n, d = pts.shape
+        _check_device_grid_range(pts, eps)
+        n_pad = _pad_bucket(n, pad_quantum)
+        padded = np.zeros((n_pad, d), np.float32)
+        padded[:n] = pts
+        valid = np.arange(n_pad) < n
 
     res, attempts = adaptive_device_dbscan(
         padded, eps, min_pts, caps, point_valid=valid,
         max_retries=max_retries, growth=growth, use_kernels=use_kernels,
         device=dev)
-    labels = res.labels[:n].cpu().numpy().astype(np.int64)
-    core = res.core[:n].cpu().numpy()
-    return ClusterResult.build(
-        labels, name, core=core, attempts=attempts,
-        overflow=attempts[-1]["overflow"],
-        stats={"n": n, "n_padded": n_pad, "retries": len(attempts) - 1,
-               "device": str(dev),
-               "t_total": time.perf_counter() - t0})
+    with obs.span("engine.cluster.finish"):
+        labels = res.labels[:n].cpu().numpy().astype(np.int64)
+        core = res.core[:n].cpu().numpy()
+        return ClusterResult.build(
+            labels, name, core=core, attempts=attempts,
+            overflow=attempts[-1]["overflow"],
+            stats={"n": n, "n_padded": n_pad,
+                   "retries": len(attempts) - 1, "device": str(dev),
+                   "t_total": time.perf_counter() - t0})
 
 
 @register_engine("device",

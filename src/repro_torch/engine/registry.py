@@ -144,6 +144,25 @@ def _attach_index(result: ClusterResult, pts: np.ndarray, eps: float,
     return result
 
 
+def _check_input(pts: np.ndarray, eps: float, min_pts: int) -> None:
+    """The input rules of every engine (``ValueError`` on a breach)."""
+    if pts.ndim != 2 or pts.shape[0] == 0:
+        raise ValueError(f"points must be [n, d] with n > 0, got {pts.shape}")
+    if not (eps > 0):
+        raise ValueError(f"eps must be positive, got {eps}")
+    if min_pts < 1:
+        raise ValueError(f"min_pts must be >= 1, got {min_pts}")
+    if pts.shape[0] < min_pts:
+        raise ValueError(
+            f"n={pts.shape[0]} < min_pts={min_pts}: no point can ever be "
+            f"core, every point would come out as noise")
+    if not np.isfinite(pts).all():
+        bad = int((~np.isfinite(pts).all(axis=1)).sum())
+        raise ValueError(
+            f"points contain non-finite coordinates ({bad} row(s) with "
+            f"NaN/Inf); clean the input before clustering")
+
+
 def cluster(points, eps: float, min_pts: int, *,
             engine: str = "auto", device=None, return_index: bool = False,
             **opts) -> ClusterResult:
@@ -167,33 +186,19 @@ def cluster(points, eps: float, min_pts: int, *,
     Returns a :class:`ClusterResult`; ``labels[i] >= 0`` is a cluster
     id, ``-1`` noise, in the original order of ``points``.
     """
-    pts = np.asarray(points)
-    if pts.ndim != 2 or pts.shape[0] == 0:
-        raise ValueError(f"points must be [n, d] with n > 0, got {pts.shape}")
-    if not (eps > 0):
-        raise ValueError(f"eps must be positive, got {eps}")
-    if min_pts < 1:
-        raise ValueError(f"min_pts must be >= 1, got {min_pts}")
-    if pts.shape[0] < min_pts:
-        raise ValueError(
-            f"n={pts.shape[0]} < min_pts={min_pts}: no point can ever be "
-            f"core, every point would come out as noise")
-    if not np.isfinite(pts).all():
-        bad = int((~np.isfinite(pts).all(axis=1)).sum())
-        raise ValueError(
-            f"points contain non-finite coordinates ({bad} row(s) with "
-            f"NaN/Inf); clean the input before clustering")
-    name = resolve_auto(device) if engine == "auto" else engine
-    spec = get_engine(name)
-    obs.counter(f"engine.cluster.{name}").inc()
-    with obs.span("engine.cluster", engine=name, n=int(pts.shape[0]),
-                  d=int(pts.shape[1])):
+    with obs.span("engine.cluster") as sp:
+        pts = np.asarray(points)
+        _check_input(pts, eps, min_pts)
+        name = resolve_auto(device) if engine == "auto" else engine
+        spec = get_engine(name)
+        obs.counter(f"engine.cluster.{name}").inc()
+        sp.set(engine=name, n=int(pts.shape[0]), d=int(pts.shape[1]))
         result = spec.fn(pts, float(eps), int(min_pts), device=device,
                          **opts)
-    assert result.labels.shape == (pts.shape[0],), \
-        f"engine {name}: labels shape {result.labels.shape}"
-    if return_index:
-        with obs.span("engine.attach_index", engine=name):
-            result = _attach_index(result, np.asarray(pts, np.float64),
-                                   float(eps), int(min_pts))
+        assert result.labels.shape == (pts.shape[0],), \
+            f"engine {name}: labels shape {result.labels.shape}"
+        if return_index:
+            with obs.span("engine.attach_index", engine=name):
+                result = _attach_index(result, np.asarray(pts, np.float64),
+                                       float(eps), int(min_pts))
     return result

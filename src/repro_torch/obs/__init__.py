@@ -13,7 +13,18 @@ two packages.  The short version of the overhead policy:
 * tracing **on** (``REPRO_OBS=1`` or :func:`enable`): spans wait for
   their registered tensors' devices at close only, counters /
   histograms always record (they are host-side integer adds and never
-  sync).
+  sync).  A span also opens a ``torch.profiler`` range of its name
+  while a profiler records, so it lies in the device trace's timeline;
+  the device pipeline's stage spans (:class:`~.trace.Stages`) carry
+  their device time from CUDA events read without a wait.
+
+The spans of a fit (``cluster(..., engine="device"|"device-kernels")``):
+``engine.cluster`` > ``engine.cluster.prepare`` (range check, padding),
+``adaptive.upload``, ``adaptive.estimate_caps``, one
+``adaptive.attempt`` per try (args ``index``, ``overflow``, ``kept``)
+> ``device_dbscan.<stage>`` for each of ``core.sync.STAGE_ORDER``
+(args ``device_ms``), then ``engine.cluster.finish`` (labels to the
+host, ``ClusterResult.build``).
 
 Environment switches (read once at import):
 
@@ -34,12 +45,12 @@ from .meta import bench_meta, git_rev
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       build_counts, build_hooks_installed, counter, gauge,
                       histogram, install_build_hooks, registry)
-from .trace import (NOOP_SPAN, Span, Tracer, disable, enable, enabled,
-                    get_tracer, span)
+from .trace import (NOOP_SPAN, Span, Stages, Tracer, disable, enable,
+                    enabled, get_tracer, resolve_device_times, span)
 
 __all__ = [
     "span", "enabled", "enable", "disable", "get_tracer", "Tracer",
-    "Span", "NOOP_SPAN",
+    "Span", "NOOP_SPAN", "Stages", "resolve_device_times",
     "MetricsRegistry", "registry", "counter", "gauge", "histogram",
     "Counter", "Gauge", "Histogram",
     "install_build_hooks", "build_hooks_installed", "build_counts",

@@ -21,18 +21,30 @@ stack so the exporter can emit parent-ordered Chrome trace events and
 the viewer can compute self-times.  Timestamps are
 ``time.perf_counter`` microseconds relative to the tracer's start --
 monotonic, which is what Perfetto wants.
+
+While a ``torch.profiler`` session is recording, each enabled span also
+opens a ``record_function`` range of its own name, so a span lies in
+the profiler's timeline beside the device work it enqueued and an idle
+gap of the device trace is named by the innermost span around it.
+Without a recording profiler no range is opened (the check is one
+``torch.autograd._profiler_enabled()`` call).
+
+:class:`Stages` times the back-to-back stages of a device pipeline: a
+span per stage, plus ``args.device_ms`` from CUDA events recorded at
+the stage marks without a wait and read (:func:`resolve_device_times`)
+once they have completed.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Tracer", "Span", "NOOP_SPAN", "span", "enabled", "enable",
-           "disable", "get_tracer"]
+__all__ = ["Tracer", "Span", "NOOP_SPAN", "Stages", "span", "enabled",
+           "enable", "disable", "get_tracer", "resolve_device_times"]
 
 
 class _NoopSpan:
@@ -82,7 +94,8 @@ class Span:
     recorded duration covers the device work the stage enqueued) and
     records one complete event."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_sync", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_sync", "_t0", "_range",
+                 "_event")
 
     def __init__(self, tracer: "Tracer", name: str,
                  attrs: Optional[Dict[str, Any]],
@@ -92,12 +105,17 @@ class Span:
         self.attrs = attrs
         self._sync = [sync] if sync is not None else []
         self._t0 = 0.0
+        self._range = None    # the profiler range, while one records
+        self._event = None    # the recorded event, once closed
 
     def set(self, **attrs: Any) -> "Span":
-        """Attach attributes mid-span (rendered as Chrome trace args)."""
+        """Attach attributes (rendered as Chrome trace args); after the
+        close they go to the recorded event too."""
         if self.attrs is None:
             self.attrs = {}
         self.attrs.update(attrs)
+        if self._event is not None:
+            self._event["args"] = self.attrs
         return self
 
     def sync(self, *values: Any) -> "Span":
@@ -108,6 +126,9 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._tracer._push(self)
+        if torch.autograd._profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -122,7 +143,11 @@ class Span:
                 ev.record(torch.cuda.current_stream(dev))
                 ev.synchronize()  # grit-lint: disable=hot-path-sync -- enabled-mode span close is the stage's intended block point; tracing-off serving never reaches this line
         t1 = time.perf_counter()
-        self._tracer._pop(self, self._t0, t1, error=exc_type is not None)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        self._event = self._tracer._pop(self, self._t0, t1,
+                                        error=exc_type is not None)
 
 
 class Tracer:
@@ -133,6 +158,9 @@ class Tracer:
         self._local = threading.local()
         self.t0 = time.perf_counter()
         self.events: List[Dict[str, Any]] = []
+        # spans timed by CUDA events whose closing event may not have
+        # completed yet: (span, opening event, closing event)
+        self._device: List[Tuple[Span, Any, Any]] = []
 
     # -- span plumbing -----------------------------------------------------
 
@@ -146,11 +174,14 @@ class Tracer:
         self._stack().append(span)
 
     def _pop(self, span: Span, t0: float, t1: float,
-             error: bool = False) -> None:
+             error: bool = False) -> Dict[str, Any]:
         stack = self._stack()
         depth = len(stack) - 1
         if stack and stack[-1] is span:
             stack.pop()
+        if error:
+            span.attrs = span.attrs or {}
+            span.attrs["error"] = True
         ev: Dict[str, Any] = {
             "name": span.name,
             "ph": "X",
@@ -162,10 +193,25 @@ class Tracer:
         }
         if span.attrs:
             ev["args"] = span.attrs
-        if error:
-            ev.setdefault("args", {})["error"] = True
         with self._lock:
             self.events.append(ev)
+        return ev
+
+    def _time_device(self, span: Span, start, end) -> None:
+        with self._lock:
+            self._device.append((span, start, end))
+
+    def resolve_device_times(self) -> None:
+        """Give ``args.device_ms`` to every span timed by CUDA events
+        whose closing event has completed; the others wait for a later
+        call.  Never waits."""
+        with self._lock:
+            todo, self._device = self._device, []
+        for sp, start, end in todo:
+            if end.query():
+                sp.set(device_ms=start.elapsed_time(end))
+            else:
+                self._time_device(sp, start, end)
 
     # -- public ------------------------------------------------------------
 
@@ -176,9 +222,11 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self.events.clear()
+            self._device.clear()
         self.t0 = time.perf_counter()
 
     def snapshot_events(self) -> List[Dict[str, Any]]:
+        self.resolve_device_times()
         with self._lock:
             return [dict(e) for e in self.events]
 
@@ -222,3 +270,72 @@ def span(name: str, sync: Optional[Any] = None, **attrs: Any):
     if t is None:
         return NOOP_SPAN
     return Span(t, name, attrs or None, sync=sync)
+
+
+def resolve_device_times() -> None:
+    """:meth:`Tracer.resolve_device_times` of the process tracer (no-op
+    when tracing is off).  Call it after a host read that waited for
+    the stream: every event recorded before it has completed."""
+    t = _TRACER
+    if t is not None:
+        t.resolve_device_times()
+
+
+def _device_event(device: torch.device):
+    """A timing CUDA event recorded now, without a wait, on the current
+    stream of ``device``; None when ``device`` is not a CUDA device."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class Stages:
+    """Back-to-back spans over the stages of one pipeline run, named
+    ``<prefix>.<stage>`` for ``stages`` in their fixed order:
+    :meth:`start` opens the first stage's span, each :meth:`mark` closes
+    the open one and opens the next.  The host interval of a stage is
+    the host's time in it; ``args.device_ms`` is, on a CUDA device, the
+    time between the events recorded at its opening and closing marks
+    (resolved later, see :func:`resolve_device_times`), and elsewhere
+    the host interval.  While tracing is off nothing is recorded: no
+    span, no event."""
+
+    def __init__(self, prefix: str, stages: Sequence[str]):
+        self.names = tuple(f"{prefix}.{s}" for s in stages)
+        self._open: Optional[Tuple[Span, Any, int]] = None
+
+    def start(self, device: torch.device) -> None:
+        if _TRACER is not None:
+            self._begin(0, device, _device_event(device))
+
+    def mark(self, device: torch.device) -> None:
+        if self._open is None:
+            return
+        sp, start, i = self._open
+        self._open = None
+        end = _device_event(device)
+        sp.__exit__(None, None, None)
+        if end is None:
+            sp.set(device_ms=sp._event["dur"] * 1e-3)
+        else:
+            sp._tracer._time_device(sp, start, end)
+        if i + 1 < len(self.names):
+            self._begin(i + 1, device, end)
+
+    def close(self) -> None:
+        """End a stage span that an error left open (recorded as an
+        error)."""
+        if self._open is not None:
+            sp = self._open[0]
+            self._open = None
+            sp.__exit__(RuntimeError, None, None)
+
+    def _begin(self, i: int, device: torch.device, start) -> None:
+        t = _TRACER
+        if t is None:
+            return
+        sp = Span(t, self.names[i], None)
+        sp.__enter__()
+        self._open = (sp, start, i)

@@ -39,6 +39,7 @@ from repro_torch import convert, obs
 from repro_torch import dist as tdist
 from repro_torch.core.dbscan import brute_dbscan
 from repro_torch.core.device_dbscan import PAD_COORD
+from repro_torch.core.sync import STAGE_ORDER
 from repro_torch.core.validate import assert_labels_conformant
 from repro_torch.data.scenarios import dist_serving_scenarios, get_scenario
 from repro_torch.dist import reconcile as treconcile
@@ -465,9 +466,11 @@ def test_traced_fit_equals_untraced_and_records_the_stages():
             obs.disable()
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(plain, f), getattr(staged, f))
+    # each shard's pipeline records its stage spans too
+    stages = {f"device_dbscan.{s}" for s in STAGE_ORDER}
     assert {"dist.fit", "dist.fit.pack", "dist.fit.transfer",
             "dist.fit.halo_exchange", "dist.fit.local_cluster",
-            "dist.fit.reconcile", "dist.fit.unpack"} == names
+            "dist.fit.reconcile", "dist.fit.unpack"} | stages == names
 
 
 def test_cluster_step_chains_the_stages_and_unpack_reads_are_counted():
