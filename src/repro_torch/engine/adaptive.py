@@ -3,11 +3,15 @@
 The device GriT pipeline (``device_dbscan``) trades the paper's dynamic
 data structures for static caps; every cap carries an overflow flag.
 
-1. :func:`estimate_caps` derives an initial ``GritCaps`` from *host-side
-   grid statistics* -- an O(n log n) pass: the non-empty-grid count
-   bounds ``grid_cap``, the max grid occupancy bounds ``m_cap`` (core
-   points per grid can never exceed occupancy), and the stencil bound
-   (3^d - 1, clamped to the exact offset-stencil size) seeds ``k_cap``.
+1. :func:`estimate_caps` derives an initial ``GritCaps`` from *grid
+   statistics* computed where its input lives (torch operations on the
+   device of a tensor, on the port's device for a numpy array) -- one
+   sort of the grid keys and one ``searchsorted`` of the stencil probes:
+   the non-empty-grid count bounds ``grid_cap``, the max grid occupancy
+   bounds ``m_cap`` (core points per grid can never exceed occupancy),
+   the small grids' stencil occupancy sums bound ``c_cap``, and the
+   stencil bound (3^d - 1, clamped to the exact offset-stencil size)
+   seeds ``k_cap``.  Three integers come back to the host.
 2. :func:`adaptive_device_dbscan` runs the pipeline, reads the per-cap
    :class:`OverflowReport` (one host read per attempt), geometrically
    grows exactly the caps that overflowed, and retries.  Caps are
@@ -19,10 +23,12 @@ under-estimate costs O(log B) attempts worst case; each cap is also
 clamped at its provable maximum (e.g. candidates <= n, neighbors <= the
 exact stencil size), so the loop terminates even on adversarial data.
 
-The host statistics work on integer grid identifiers.  Where the
+The statistics work on integer grid identifiers.  Where the
 identifier rows fit a mixed-radix int64 key they are compared as such
 keys (``_row_keys``) rather than as structured rows: the same
-memberships and counts, found much faster at 10^6 points.
+memberships and counts, found much faster at 10^6 points.  Where they
+do not, the estimate takes the host functions :func:`grid_stats` /
+:func:`candidate_census`, which the distributed estimate also uses.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from ..core.device_dbscan import (GritCaps, DeviceDBSCANResult,
                                   OverflowReport, device_dbscan)
 from ..core.grids import identifiers
 from ..core.grid_tree import offset_stencil, radius
-from ..core.sync import host_read
+from ..core.sync import count_read, host_read
 
 
 class CapOverflowError(RuntimeError):
@@ -233,25 +239,146 @@ def _caps_from_stats(n: int, d: int, num_grids: int, max_occ: int,
                     use_kernels=use_kernels)
 
 
-def estimate_caps(points: np.ndarray, eps: float, min_pts: int,
-                  point_valid: Optional[np.ndarray] = None,
+#: elements of one chunk of the census's probe matrix (int64: 32 MiB)
+PROBE_CHUNK = 1 << 22
+#: key of the rows that count nowhere: above every key that fits
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def device_identifiers(x: torch.Tensor, eps: float, valid: torch.Tensor
+                       ) -> torch.Tensor:
+    """Eq. (1) where ``x`` lives: the float64 identifiers of
+    :func:`~repro_torch.core.grids.identifiers` over the valid rows, bit
+    for bit (``floor((x - mins) / side)`` in float64, ``mins`` over the
+    valid rows), and 0 on the invalid ones.
+
+    ``side`` is a 0-d float64 tensor on ``x``'s device: divided by a CPU
+    scalar, PyTorch's CUDA division multiplies by the reciprocal, whose
+    product can differ from numpy's quotient in the last bit."""
+    x = x.to(torch.float64)
+    d = x.shape[1]
+    side = torch.tensor(float(eps) / np.sqrt(d), dtype=torch.float64,
+                        device=x.device)
+    mins = torch.where(valid[:, None], x, math.inf).amin(0)
+    return torch.where(valid[:, None], torch.floor((x - mins) / side), 0.0)
+
+
+def device_grid_stats(x: torch.Tensor, eps: float, min_pts: int,
+                      valid: Optional[torch.Tensor] = None
+                      ) -> Optional[Tuple[int, int, int]]:
+    """``(num_grids, max_occ, cand_max)`` of :func:`grid_stats` and
+    :func:`candidate_census`, computed with torch operations where ``x``
+    lives; None where the padded identifier rows do not fit an int64
+    key (the host functions then take over).
+
+    The rows' keys are those of ``_row_keys`` with the census's padding,
+    sorted once: a run of equal keys is a grid, its length the grid's
+    occupancy.  A key is linear in the identifier, so the probe of a
+    stencil offset is ``key + sum_j delta_j * stride_j``, and the
+    occupancy of a probed grid is the width of its run in the sorted
+    keys (two ``searchsorted``, 0 for an empty grid).  Invalid rows take
+    a key above every probe.  Three host reads, each a few integers:
+    the identifiers' per-axis maximum, the grid counts, ``cand_max``.
+    """
+    n, d = x.shape
+    dev = x.device
+    if n == 0:
+        return 1, 1, 1
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    ids = device_identifiers(x, eps, valid)
+    head = host_read(torch.cat([valid.sum().to(torch.float64)[None],
+                                ids.amax(0)]))
+    if head[0] == 0:
+        return 1, 1, 1
+    r = radius(d)
+    base = [int(t) + 2 * r + 1 for t in head[1:]]
+    if math.prod(base) >= 1 << 62:
+        return None
+    stride = torch.tensor([math.prod(base[j + 1:]) for j in range(d)],
+                          dtype=torch.int64, device=dev)
+    keys = ((ids.to(torch.int64) + r) * stride).sum(1)
+    keys = torch.sort(torch.where(valid, keys, _NO_KEY)).values
+
+    pos = torch.arange(n, device=dev)
+    last = torch.ones(n, dtype=torch.bool, device=dev)
+    last[:-1] = keys[1:] != keys[:-1]
+    last &= keys != _NO_KEY                  # the last row of each grid
+    occ = torch.where(last, pos + 1 - torch.searchsorted(keys, keys), 0)
+    small = last & (occ < min_pts)
+    num_grids, max_occ, n_small = host_read(
+        torch.stack([last.sum(), occ.max(), small.sum()]))
+    if n_small == 0:
+        return num_grids, max_occ, 1
+
+    small_keys = torch.sort(torch.where(small, keys, _NO_KEY)).values
+    deltas, _ = offset_stencil(d)
+    step = (torch.as_tensor(np.asarray(deltas, np.int64)).to(dev)
+            * stride).sum(1)
+    rows = max(1, PROBE_CHUNK // len(step))
+    best = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, n_small, rows):
+        probe = small_keys[lo:min(lo + rows, n_small), None] + step
+        width = (torch.searchsorted(keys, probe, right=True)
+                 - torch.searchsorted(keys, probe))
+        best = torch.maximum(best, width.sum(1).max())
+    return num_grids, max_occ, host_read(best)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, counted as a host read."""
+    count_read()
+    return t.cpu().numpy()
+
+
+def estimate_caps(points, eps: float, min_pts: int,
+                  point_valid=None,
                   margin: float = 1.25,
                   extra_grids: int = 2,
                   use_kernels: bool = False) -> GritCaps:
-    """Initial ``GritCaps`` from host grid statistics (see module doc).
+    """Initial ``GritCaps`` from grid statistics (see module doc).
+
+    The statistics are computed where ``points`` lives: a tensor on its
+    own device, a numpy array on the port's CUDA device when there is
+    one and on the CPU when there is none (:func:`device_grid_stats`).
+    Identifier rows too wide for an int64 key take the host functions.
+    Counter ``adaptive.estimate_caps.device`` / ``.host`` and the span's
+    ``where`` say which ran.
 
     ``extra_grids`` reserves slots for the sentinel grids that padding
     points (``point_valid == False`` -> PAD_COORD) occupy.
     ``use_kernels`` selects the kernelized distance plane; it rides on
     the caps and is preserved by ``grow_caps``.
     """
-    pts = np.asarray(points)
-    n, d = pts.shape
-    with obs.span("adaptive.estimate_caps", n=n, d=d):
-        num_grids, max_occ = grid_stats(pts, eps, point_valid)
-        cand_max = candidate_census(pts, eps, min_pts, point_valid)
-        return _caps_from_stats(n, d, num_grids, max_occ, cand_max,
-                                margin, extra_grids, use_kernels)
+    host = None if isinstance(points, torch.Tensor) else np.asarray(points)
+    n, d = (points if host is None else host).shape
+    with obs.span("adaptive.estimate_caps", n=n, d=d) as sp:
+        if host is None:
+            x = points
+        else:
+            dev = (resolve_device(None) if torch.cuda.is_available()
+                   else torch.device("cpu"))
+            x = torch.as_tensor(host, dtype=torch.float32
+                                if host.dtype == np.float32
+                                else torch.float64).to(dev)
+        valid = (None if point_valid is None else
+                 torch.as_tensor(point_valid, dtype=torch.bool).to(x.device))
+        stats = device_grid_stats(x, eps, min_pts, valid)
+        if stats is not None:
+            where = str(x.device)
+        else:
+            where = "host"
+            if host is None:
+                host = _host_copy(x)
+            if isinstance(point_valid, torch.Tensor):
+                point_valid = _host_copy(point_valid)
+            stats = (*grid_stats(host, eps, point_valid),
+                     candidate_census(host, eps, min_pts, point_valid))
+        sp.set(where=where)
+        obs.counter("adaptive.estimate_caps."
+                    + ("host" if where == "host" else "device")).inc()
+        return _caps_from_stats(n, d, *stats, margin, extra_grids,
+                                use_kernels)
 
 
 def _shard_point_sets(points: np.ndarray, eps: float, n_shards: int):
@@ -441,21 +568,23 @@ def adaptive_device_dbscan(points, eps: float, min_pts: int,
     with obs.span("adaptive.upload"):
         if isinstance(points, torch.Tensor):
             pts = points.to(torch.float32)
-            host_pts = None
+            est_pts = pts
         else:
             host_pts = np.asarray(points)
             pts = torch.as_tensor(host_pts, dtype=torch.float32).to(
                 resolve_device(device))
+            est_pts = pts
+            if caps is None and host_pts.dtype != np.float32:
+                # the estimate reads the caller's values: grid boundaries
+                # of their float32 rounding may differ
+                est_pts = torch.as_tensor(host_pts, dtype=torch.float64).to(
+                    pts.device)
         if point_valid is not None:
             point_valid = torch.as_tensor(point_valid, dtype=torch.bool).to(
                 pts.device)
     n, d = pts.shape
     if caps is None:
-        if host_pts is None:
-            host_pts = pts.cpu().numpy()
-        caps = estimate_caps(host_pts, eps, min_pts,
-                             point_valid=None if point_valid is None
-                             else point_valid.cpu().numpy(),
+        caps = estimate_caps(est_pts, eps, min_pts, point_valid=point_valid,
                              use_kernels=bool(use_kernels))
     elif use_kernels is not None and caps.use_kernels != use_kernels:
         caps = dataclasses.replace(caps, use_kernels=use_kernels)

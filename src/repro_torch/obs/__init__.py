@@ -20,7 +20,8 @@ two packages.  The short version of the overhead policy:
 
 The spans of a fit (``cluster(..., engine="device"|"device-kernels")``):
 ``engine.cluster`` > ``engine.cluster.prepare`` (range check, padding),
-``adaptive.upload``, ``adaptive.estimate_caps``, one
+``adaptive.upload``, ``adaptive.estimate_caps`` (arg ``where``: the
+device the statistics ran on, or ``host``), one
 ``adaptive.attempt`` per try (args ``index``, ``overflow``, ``kept``)
 > ``device_dbscan.<stage>`` for each of ``core.sync.STAGE_ORDER``
 (args ``device_ms``), then ``engine.cluster.finish`` (labels to the

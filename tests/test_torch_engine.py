@@ -20,6 +20,7 @@ import repro.engine as jengine
 from repro.core.device_dbscan import GritCaps as JGritCaps
 import repro_torch
 import repro_torch.engine as tengine
+import repro_torch.engine.adaptive as tadaptive
 from repro_torch.core.dbscan import canonicalize_labels
 from repro_torch.core.device_dbscan import GritCaps
 from repro_torch.core.validate import (assert_labels_conformant,
@@ -157,6 +158,118 @@ def test_host_statistics_equal_beyond_the_int64_key_range():
     empty = np.zeros(400, bool)
     assert tengine.grid_stats(pts, eps, empty) == (1, 1)
     assert tengine.candidate_census(pts, eps, 4, empty) == 1
+
+
+def _estimate_counts():
+    snap = repro_torch.obs.registry().snapshot()
+    return {w: snap.get(f"adaptive.estimate_caps.{w}", 0)
+            for w in ("device", "host")}
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_estimate_caps_on_a_cpu_tensor_equal(name):
+    """The torch statistics, on a CPU tensor, give the reference's caps
+    for both keyword sets and with a validity mask, in at most three
+    host reads a call, each counted as a device estimate."""
+    from repro_torch.core import sync
+    sc = SCENARIOS[name]
+    pts = sc.points()
+    x = torch.as_tensor(pts)
+    valid = np.arange(len(pts)) % 3 != 0
+    wide = dict(use_kernels=True, margin=2.0, extra_grids=5)
+    for kw, tkw in ((dict(), dict()), (wide, wide),
+                    (dict(point_valid=valid), dict(point_valid=valid)),
+                    (dict(point_valid=valid),
+                     dict(point_valid=torch.as_tensor(valid)))):
+        before, reads = _estimate_counts(), sync.READS["count"]
+        got = tengine.estimate_caps(x, sc.eps, sc.min_pts, **tkw)
+        assert sync.READS["count"] - reads <= 3
+        after = _estimate_counts()
+        assert (after["device"] - before["device"],
+                after["host"] - before["host"]) == (1, 0)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            jengine.estimate_caps(pts, sc.eps, sc.min_pts, **kw))
+    assert tadaptive.device_grid_stats(x, sc.eps, sc.min_pts) == (
+        *jengine.grid_stats(pts, sc.eps),
+        jengine.candidate_census(pts, sc.eps, sc.min_pts))
+    none = torch.zeros(len(pts), dtype=torch.bool)
+    assert tadaptive.device_grid_stats(x, sc.eps, sc.min_pts, none) == \
+        (1, 1, 1)
+
+
+def _boundary_points():
+    """Rows at ``mins + k * side`` and one float64 ulp either side of
+    it, on every axis; ``mins`` is the first row."""
+    eps, d = 7.3, 3
+    side = eps / np.sqrt(d)
+    mins = np.array([-12.25, 3.5, 1000.125])
+    on = mins + np.arange(120)[:, None] * side
+    pts = np.concatenate([on, np.nextafter(on, np.inf),
+                          np.nextafter(on[1:], -np.inf)])
+    rng = np.random.default_rng(3)
+    mixed = np.stack([rng.permutation(pts[:, j]) for j in range(d)], 1)
+    return np.concatenate([pts, mixed]), eps
+
+
+def test_device_identifiers_equal_numpy_at_grid_boundaries():
+    """At a grid boundary and one ulp either side, the torch identifiers
+    are numpy's bit for bit (a product with the reciprocal of ``side``
+    moves some of these rows by one grid), and so are the caps."""
+    from repro_torch.core.grids import identifiers
+    pts, eps = _boundary_points()
+    want, _, _ = identifiers(pts, eps)
+    got = tadaptive.device_identifiers(torch.as_tensor(pts), eps,
+                                       torch.ones(len(pts), dtype=torch.bool))
+    np.testing.assert_array_equal(got.to(torch.int64).numpy(), want)
+    valid = np.arange(len(pts)) % 4 != 1
+    want_v, _, _ = identifiers(pts[valid], eps)
+    got_v = tadaptive.device_identifiers(torch.as_tensor(pts), eps,
+                                       torch.as_tensor(valid))
+    np.testing.assert_array_equal(got_v.to(torch.int64).numpy()[valid],
+                                  want_v)
+    assert (got_v.numpy()[~valid] == 0).all()
+    for kw in (dict(), dict(point_valid=valid)):
+        assert dataclasses.asdict(tengine.estimate_caps(
+            torch.as_tensor(pts), eps, 4, **kw)) == dataclasses.asdict(
+                jengine.estimate_caps(pts, eps, 4, **kw))
+
+
+def test_a_float64_fit_estimates_on_the_callers_values():
+    """A float64 array whose values float32 cannot hold: the fit's first
+    caps are the estimate of the float64 array, not of the float32 copy
+    the pipeline runs on (which puts 20 rows in another grid here)."""
+    pts = np.concatenate([[[0.0]], np.full((20, 1), 999.99999999),
+                          np.full((20, 1), 1000.5), [[2000.0]]])
+    want = tengine.estimate_caps(pts, 1.0, 3)
+    assert dataclasses.asdict(want) != dataclasses.asdict(
+        tengine.estimate_caps(pts.astype(np.float32), 1.0, 3))
+    _, attempts = tengine.adaptive_device_dbscan(pts, 1.0, 3, device="cpu")
+    assert attempts[0]["caps"] == dataclasses.asdict(want)
+    assert attempts[0]["caps"] == dataclasses.asdict(
+        jengine.estimate_caps(pts, 1.0, 3))
+
+
+def test_a_key_space_beyond_int64_takes_the_host_statistics():
+    """Identifier rows too wide for an int64 key: the estimate runs the
+    host functions, counts ``adaptive.estimate_caps.host``, and gives
+    the reference's caps in at most three host reads."""
+    from repro_torch.core import sync
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 1e5, size=(400, 5))
+    pts[:200] = pts[0] + rng.uniform(0, 30.0, size=(200, 5))
+    eps = 0.6                       # span/side ~ 3.7e5 per dim, 5 dims
+    assert tadaptive.device_grid_stats(torch.as_tensor(pts), eps, 4) is None
+    valid = np.arange(len(pts)) % 3 != 0
+    for x in (pts, torch.as_tensor(pts)):
+        for kw in (dict(), dict(point_valid=valid)):
+            before, reads = _estimate_counts(), sync.READS["count"]
+            got = tengine.estimate_caps(x, eps, 4, **kw)
+            assert sync.READS["count"] - reads <= 3
+            after = _estimate_counts()
+            assert (after["device"] - before["device"],
+                    after["host"] - before["host"]) == (0, 1)
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                jengine.estimate_caps(pts, eps, 4, **kw))
 
 
 @pytest.mark.parametrize("flags", [("grid",), ("frontier",), ("neighbors",),

@@ -133,7 +133,8 @@ def test_fit_spans_lie_in_the_profiler_trace_nested_as_recorded(
     assert attempts[0]["args"]["overflow"] == ["neighbors"]
     assert attempts[1]["args"]["overflow"] == []
     (est,) = [e for e in events if e["name"] == "adaptive.estimate_caps"]
-    assert est["args"] == {"n": 512, "d": 3}   # the padded input
+    # the padded input, estimated on the tensor the fit uploaded
+    assert est["args"] == {"n": 512, "d": 3, "where": "cpu"}
 
 
 def test_direct_children_cover_the_fit_and_stages_lie_in_attempts(
