@@ -19,7 +19,7 @@ compared on, table by table, against ``repro.core.device_dbscan``.
 ``GritCaps.packed`` (default True) selects *occupancy-packed* dispatch
 for the cap-proportional stages.  The dense strategy sweeps
 ``core_rows`` / ``border_rows`` over every ``grid_cap`` slot at the full
-``c_cap`` width and the neighbor table over every row.  The packed
+``c_cap`` width.  The packed
 strategy keeps the paper's work-proportional claim: live small grids
 are compacted to a prefix sorted by candidate total and swept in three
 tiers at pow2 sub-caps (``c_cap/4``, ``c_cap/2``, ``c_cap``), the widest
@@ -30,7 +30,10 @@ rows are elementwise the same values, and the result scatters (max for
 core flags, min for border labels) are order-independent.  Overflow
 flags are computed from the global per-grid candidate totals, never
 from what a tier dispatched.  The tier bounds are data dependent and
-are read to the host once per fit.
+are read to the host once per fit.  The border sweep visits only the
+grids of each tier that hold a non-core point (a grid of core points
+assigns no border label; one more host read), so ``dispatch_tiers``
+counts the core sweep's grids.
 
 Chunking: ``grid_block`` / ``pair_block`` are validated and carried for
 compatibility of the caps, but they are memory chunking, not semantics
@@ -38,7 +41,11 @@ compatibility of the caps, but they are memory chunking, not semantics
 grids, not blocks).  This module sweeps chunks sized from a memory
 budget instead (``SWEEP_ELEMS``, ``PLAIN_ELEMS``, ``MERGE_ELEMS``), and
 the merge stage visits only the prefix of valid pairs in either
-dispatch mode: the slots past it are all-False rows of ``merged``.
+dispatch mode: the slots past it are all-False rows of ``merged``.  It
+sweeps the pairs in width tiers, each pair's point sets padded to the
+power of two at or above its grids' larger occupancy (at most
+``m_cap``): the same decisions as at ``m_cap``, at the work of the
+pair's own sizes (one host read of the tier bounds).
 
 ``GritCaps.use_kernels`` selects the distance plane for the two
 distance-heavy stages.  ``False`` is the plain broadcast plane -- the
@@ -256,7 +263,7 @@ def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
     stage_mark("grids", dev)
     nbr32, _, ovf_frontier, ovf_k = device_neighbor_table(
         dg.ids, dg.num_grids, frontier_cap=caps.frontier_cap,
-        k_cap=caps.k_cap, include_self=False, packed=caps.packed)
+        k_cap=caps.k_cap, include_self=False)
     nbr = nbr32.to(torch.int64)
     stage_mark("neighbors", dev)
     G = caps.grid_cap
@@ -360,10 +367,12 @@ def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
     else:
         sweeps = [(grid_rows, 0, G, caps.c_cap)]
         tier_counts = (0, 0, 0, G)
+    SPANS.set(tier_widths=[w for *_, w in sweeps],
+              tier_grids=[hi - lo for _, lo, hi, _ in sweeps])
     dispatch_tiers = torch.tensor(tier_counts, dtype=torch.int32, device=dev)
 
-    def sweep(row_fn, acc, reduce):
-        for rows_of, lo, hi, width in sweeps:
+    def sweep(row_fn, acc, reduce, plan):
+        for rows_of, lo, hi, width in plan:
             step = chunk_rows(width)
             for s in range(lo, hi, step):
                 oi, val = row_fn(rows_of[s:min(s + step, hi)], width)
@@ -374,7 +383,7 @@ def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
                                     include_self=True)
         return acc
 
-    core_sorted = sweep(core_rows, core_flag, "amax") > 0
+    core_sorted = sweep(core_rows, core_flag, "amax", sweeps) > 0
     stage_mark("core", dev)
 
     core_per_grid = torch.zeros((G,), dtype=torch.int64, device=dev)
@@ -394,32 +403,48 @@ def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
     pg = torch.div(flat, K, rounding_mode="floor")
     ph = nbr.reshape(-1)[flat]
 
-    m_slot = torch.arange(caps.m_cap, device=dev)[None, :]
-
-    def core_set(g):
-        """Compacted core points of each grid in ``g``: (index into the
-        sorted points [N, m_cap], validity [N, m_cap])."""
-        inb = m_slot < counts[g][:, None]
-        pidx = torch.where(inb, starts[g][:, None] + m_slot,
+    def core_set(g, width):
+        """Compacted core points of each grid in ``g`` among its first
+        ``width`` points: (index into the sorted points [N, width],
+        validity [N, width])."""
+        slot = torch.arange(width, device=dev)[None, :]
+        inb = slot < counts[g][:, None]
+        pidx = torch.where(inb, starts[g][:, None] + slot,
                            torch.zeros_like(inb, dtype=torch.int64))
         flag = core_sorted[pidx] & inb
         tgt = torch.cumsum(flag.to(torch.int64), dim=1) - 1
         out = torch.zeros_like(pidx)
         out.scatter_reduce_(
-            1, torch.where(flag, tgt, torch.full_like(tgt, caps.m_cap - 1)),
+            1, torch.where(flag, tgt, torch.full_like(tgt, width - 1)),
             torch.where(flag, pidx, torch.zeros_like(pidx)), "amax",
             include_self=True)
-        setv = m_slot < flag.sum(dim=1)[:, None]
+        setv = slot < flag.sum(dim=1)[:, None]
         return torch.where(setv, out, torch.zeros_like(out)), setv
 
+    # width tiers: a pair's point sets are padded to the power of two
+    # at or above the larger occupancy of its two grids (at most m_cap),
+    # not to m_cap.  A grid's core set lies within its occupancy, and
+    # FastMerging's decision and rounds do not depend on the padding
+    # past the valid slots, so every pair decides as at m_cap.
+    widths = sorted({min(caps.m_cap, 1 << k) for k in
+                     range(3, max(caps.m_cap - 1, 1).bit_length() + 1)}
+                    | {caps.m_cap})
+    occ_pair = torch.maximum(counts[pg], counts[ph])
+    tier = torch.clamp_max(torch.searchsorted(
+        torch.tensor(widths, device=dev), occ_pair), len(widths) - 1)
+    by_tier = torch.argsort(tier, stable=True)
+    pair_cuts = host_read(torch.cumsum(
+        torch.bincount(tier, minlength=len(widths)), 0))
     merged = torch.zeros((flat.numel(),), dtype=torch.bool, device=dev)
-    step = max(1, MERGE_ELEMS // (caps.m_cap * d))
-    for s in range(0, flat.numel(), step):
-        ai, av = core_set(pg[s:s + step])
-        bi, bv = core_set(ph[s:s + step])
-        yes, _ = fast_merging_batch(spts[ai], av, spts[bi], bv, eps,
-                                    max_iters=caps.merge_iters)
-        merged[s:s + step] = yes
+    for lo, hi, width in zip([0] + pair_cuts[:-1], pair_cuts, widths):
+        step = max(1, MERGE_ELEMS // (width * d))
+        for s in range(lo, hi, step):
+            sel = by_tier[s:min(s + step, hi)]
+            ai, av = core_set(pg[sel], width)
+            bi, bv = core_set(ph[sel], width)
+            yes, _ = fast_merging_batch(spts[ai], av, spts[bi], bv, eps,
+                                        max_iters=caps.merge_iters)
+            merged[sel] = yes
     stage_mark("merge", dev)
 
     edges = torch.stack([pg, ph], dim=1)
@@ -455,9 +480,27 @@ def _pipeline(points: torch.Tensor, eps: float, min_pts: int,
                           torch.full_like(gbest, G))
         return own_idx, lab
 
+    border_plan = sweeps
+    if caps.packed:
+        # a grid whose points are all core assigns no border label: each
+        # tier's grids that hold a non-core point go first (stable), and
+        # the border sweep visits only those (one host read)
+        noncore = torch.zeros((G,), dtype=torch.int64, device=dev)
+        noncore.index_add_(0, point_grid,
+                           (sorted_valid & ~core_sorted).to(torch.int64))
+        need = noncore[pperm] > 0
+        tier_of = torch.searchsorted(
+            torch.tensor(cuts, device=dev), grid_rows, right=True)
+        bperm = pperm[torch.argsort(tier_of * 2 + (~need).to(torch.int64),
+                                    stable=True)]
+        kept = host_read(torch.bincount(
+            torch.where(need, tier_of, len(cuts)),
+            minlength=len(cuts) + 1)[:len(cuts)])
+        border_plan = [(bperm, lo, lo + k, w)
+                       for (_, lo, _, w), k in zip(sweeps, kept)]
     border_sorted = sweep(
         border_rows, torch.full((n,), G, dtype=torch.int64, device=dev),
-        "amin")
+        "amin", border_plan)
     stage_mark("border", dev)
 
     lab_sorted = torch.where(core_sorted, grid_label[point_grid],

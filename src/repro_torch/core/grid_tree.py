@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .sync import host_read
+from .sync import count_read, host_read
 
 
 # --------------------------------------------------------------------------
@@ -254,105 +254,137 @@ def stencil_neighbors(ids: np.ndarray, queries: np.ndarray,
 
 
 # --------------------------------------------------------------------------
-# device neighbor table
+# device grid tree: level arrays and a ragged descent
 # --------------------------------------------------------------------------
 
-def _bsearch(col: torch.Tensor, value: torch.Tensor, lo: torch.Tensor,
-             hi: torch.Tensor, steps: int) -> torch.Tensor:
-    """Left binary search for ``value`` in sorted ``col[lo:hi]``
-    (vectorized, fixed trip count)."""
-    top = col.shape[0] - 1
-    for _ in range(steps):
-        mid = torch.div(lo + hi, 2, rounding_mode="floor")
-        pred = col[torch.clamp(mid, 0, top)] < value
-        active = lo < hi
-        lo = torch.where(active & pred, mid + 1, lo)
-        hi = torch.where(active & ~pred, mid, hi)
-    return lo
-
-
-# elements of one [rows, frontier * (2r+2)] search array per row chunk
+#: entries of one level of a descent per chunk of query rows: memory
+#: chunking, not semantics (every query row is independent)
 ROW_CHUNK_ELEMS = 1 << 23
 
 
-def _query_rows(sorted_ids: torch.Tensor, rows: torch.Tensor,
-                num_grids: torch.Tensor, frontier_cap: int, k_cap: int,
-                include_self: bool):
-    """Algorithm 3 for the grid rows ``rows`` [R], written out with a
-    leading row dimension.  Returns (nbr [R, k_cap], nbr_off [R, k_cap],
-    ovf_frontier [R] bool, ovf_k [R] bool)."""
-    G_cap, d = sorted_ids.shape
-    dev = sorted_ids.device
+@dataclasses.dataclass
+class DeviceLevels:
+    """The grid tree's level arrays over ``G`` distinct lex-sorted rows
+    of non-negative identifiers, on their device.  Level ``j`` holds its
+    nodes (the distinct ``j+1``-prefixes) in order, each as the packed
+    key ``parent * base[j] + key`` (``parent``: the node's prefix at
+    level ``j-1``, 0 at level 0), so one ``searchsorted`` finds the
+    children of a node within a key range; ``base[j]`` exceeds every key
+    of column ``j`` by more than ``radius(d)``.  ``leaf_row`` maps the
+    last level's nodes to rows (:func:`level_arrays` builds them)."""
+
+    packed: list
+    base: list
+    leaf_row: torch.Tensor
+
+
+def level_arrays(rows: torch.Tensor) -> DeviceLevels:
+    """The :class:`DeviceLevels` of ``G`` distinct lex-sorted rows
+    ``[G, d]`` of non-negative identifiers: one host read, and one a
+    level."""
+    G, d = rows.shape
+    dev = rows.device
     r = radius(d)
-    steps = int(math.ceil(math.log2(max(G_cap, 2)))) + 1
-    n_k = 2 * r + 1
-    BIG = 2 ** 30
-    R = rows.shape[0]
-
-    q = sorted_ids[rows].to(torch.int64)                    # [R, d]
-    lo = torch.zeros((R, 1), dtype=torch.int64, device=dev)
-    hi = num_grids.to(torch.int64).expand(R, 1)
-    off = torch.zeros((R, 1), dtype=torch.int64, device=dev)
-    valid = torch.ones((R, 1), dtype=torch.bool, device=dev)
-    ovf_frontier = torch.zeros((R,), dtype=torch.bool, device=dev)
-    span = torch.arange(-r, r + 2, device=dev)              # [n_k + 1]
-
+    top = host_read(rows.amax(0)) if G else [0] * d
+    base = [int(t) + r + 1 for t in top]
+    packed = []
+    parent_of_row = torch.zeros(G, dtype=torch.int64, device=dev)
+    first = torch.arange(G, device=dev)
     for j in range(d):
-        # the traversal starts from ONE root range and multiplies by at
-        # most n_k per level, so level j holds <= n_k^j live ranges:
-        # the level's arrays are that wide, not a flat frontier_cap
-        W = lo.shape[1]
-        col = sorted_ids[:, j].to(torch.int64)
-        # one left search over the n_k+1 consecutive keys
-        # [q_j-r .. q_j+r+1]; keys are consecutive integers, so
-        # right(k) == left(k+1) and the range ends come for free
-        ks1 = q[:, j, None] + span[None, :]                 # [R, n_k+1]
-        shape = (R, W, n_k + 1)
-        pos = _bsearch(col, ks1[:, None, :].expand(shape),
-                       lo[:, :, None].expand(shape),
-                       hi[:, :, None].expand(shape), steps)
-        nlo = pos[:, :, :-1].reshape(R, W * n_k)
-        nhi = pos[:, :, 1:].reshape(R, W * n_k)
-        off_e = off[:, :, None].expand(R, W, n_k).reshape(R, W * n_k)
-        val_e = valid[:, :, None].expand(R, W, n_k).reshape(R, W * n_k)
-        k_e = ks1[:, None, :-1].expand(R, W, n_k).reshape(R, W * n_k)
-        doff = torch.clamp_min(torch.abs(k_e - q[:, j, None]) - 1, 0) ** 2
-        noff = off_e + doff
-        nval = val_e & (nlo < nhi) & (noff < d) & (k_e >= 0)
-        # compact: valid entries first, offset ascending within valid
-        key = torch.where(nval, noff, torch.full_like(noff, BIG))
-        order = torch.argsort(key, dim=1, stable=True)
-        take = order[:, :min(W * n_k, frontier_cap)]
-        ovf_frontier = ovf_frontier | (nval.sum(dim=1) > frontier_cap)
-        lo, hi = torch.gather(nlo, 1, take), torch.gather(nhi, 1, take)
-        off, valid = torch.gather(noff, 1, take), torch.gather(nval, 1, take)
+        new = torch.ones(G, dtype=torch.bool, device=dev)
+        if G > 1:
+            new[1:] = (rows[1:, :j + 1] != rows[:-1, :j + 1]).any(1)
+        first = torch.nonzero(new)[:, 0]
+        count_read()
+        packed.append(parent_of_row[first] * base[j] + rows[first, j])
+        parent_of_row = torch.cumsum(new.to(torch.int64), 0) - 1
+    return DeviceLevels(packed=packed, base=base, leaf_row=first)
 
-    # leaves: each surviving range is a single grid row (full id fixed)
-    if k_cap > lo.shape[1]:
-        # leaf arrays are level-d wide; widen so the promised
-        # [., k_cap] output shape holds
-        ext = k_cap - lo.shape[1]
-        lo = torch.cat([lo, lo.new_zeros((R, ext))], dim=1)
-        off = torch.cat([off, off.new_full((R, ext), BIG)], dim=1)
-        valid = torch.cat([valid, valid.new_zeros((R, ext))], dim=1)
-    grid = torch.where(valid, lo, torch.full_like(lo, -1))
-    if not include_self:
-        valid = valid & ~(valid & (lo == rows[:, None]))
-        grid = torch.where(valid, grid, torch.full_like(grid, -1))
-        off = torch.where(valid, off, torch.full_like(off, BIG))
-        order = torch.argsort(off, dim=1, stable=True)
-        grid = torch.gather(grid, 1, order)
-        off = torch.gather(off, 1, order)
-        valid = torch.gather(valid, 1, order)
-    ovf_k = valid.sum(dim=1) > k_cap
-    off = torch.where(valid, off, torch.full_like(off, -1))
-    return (grid[:, :k_cap].to(torch.int32), off[:, :k_cap].to(torch.int32),
-            ovf_frontier, ovf_k)
+
+def descend(levels: DeviceLevels, q: torch.Tensor,
+            frontier_cap: Optional[int] = None):
+    """Algorithm 3 for the query rows ``q`` [Q, d] (int64 identifiers of
+    rows of the tree, or any cells of its range), written out as a
+    ragged descent: each level expands every kept prefix to its children
+    within ``radius(d)`` on the next axis (one ``searchsorted`` over the
+    level's packed keys), prunes at offset >= d, and orders each query's
+    survivors by offset, stably, so the order within an offset is the
+    order of the expansion -- the order the reference's fixed-width
+    frontier keeps.  With ``frontier_cap`` a query keeps its first
+    ``frontier_cap`` survivors of a level.  The work is the surviving
+    entries, not the ``(2r+1)^d`` stencil.
+
+    Returns ``(q_of, grid, off, widest, over, entries)``: the leaves, by
+    query and then offset ascending -- query index into ``q``, tree row,
+    integer offset --; per query the most survivors of any level
+    ``[Q]``; per query whether a level had more than ``frontier_cap``
+    ``[Q]`` bool; and the entries expanded over all levels (a host
+    int).  Two host reads a level."""
+    Q, d = q.shape
+    dev = q.device
+    r = radius(d)
+    q_of = torch.arange(Q, device=dev)
+    node = torch.zeros(Q, dtype=torch.int64, device=dev)
+    off = torch.zeros(Q, dtype=torch.int64, device=dev)
+    widest = torch.zeros(Q, dtype=torch.int64, device=dev)
+    over = torch.zeros(Q, dtype=torch.bool, device=dev)
+    entries = 0
+    for j in range(d):
+        keys, b = levels.packed[j], levels.base[j]
+        want = q[q_of, j]
+        lo = node * b + torch.clamp_min(want - r, 0)
+        a = torch.searchsorted(keys, lo)
+        cnt = torch.searchsorted(keys, node * b + want + r, right=True) - a
+        total = int(host_read(cnt.sum()))
+        entries += total
+        src = torch.repeat_interleave(
+            torch.arange(cnt.shape[0], device=dev), cnt, output_size=total)
+        child = a[src] + torch.arange(total, device=dev) \
+            - (torch.cumsum(cnt, 0) - cnt)[src]
+        key = keys[child] - node[src] * b
+        q_of, node = q_of[src], child
+        off = off[src] + torch.clamp_min(torch.abs(key - want[src]) - 1,
+                                         0) ** 2
+        alive = off < d
+        # each query's survivors first, offset ascending, stable
+        order = torch.sort(q_of * (d + 1) + torch.where(alive, off, d),
+                           stable=True).indices
+        q_of, node, off, alive = (q_of[order], node[order], off[order],
+                                  alive[order])
+        n_alive = torch.zeros(Q, dtype=torch.int64, device=dev).index_add_(
+            0, q_of, alive.to(torch.int64))
+        widest = torch.maximum(widest, n_alive)
+        keep = alive
+        if frontier_cap is not None:
+            over |= n_alive > frontier_cap
+            per_q = torch.bincount(q_of, minlength=Q)
+            rank = torch.arange(q_of.shape[0], device=dev) \
+                - (torch.cumsum(per_q, 0) - per_q)[q_of]
+            keep = alive & (rank < frontier_cap)
+        idx = torch.nonzero(keep)[:, 0]
+        count_read()
+        q_of, node, off = q_of[idx], node[idx], off[idx]
+    return q_of, levels.leaf_row[node], off, widest, over, entries
+
+
+def descend_rows(levels: DeviceLevels, rows: torch.Tensor,
+                 frontier_cap: Optional[int] = None):
+    """:func:`descend` for every row of ``rows``, in chunks of rows sized
+    from ``ROW_CHUNK_ELEMS`` entries a level and the entries a row the
+    chunks before needed: yields ``(start, end, descend(...))``."""
+    n, d = rows.shape
+    s, per_row = 0, min((2 * radius(d) + 1) ** d, max(n, 1))
+    while s < n:
+        e = min(s + max(64, ROW_CHUNK_ELEMS // max(1, min(per_row, n))), n)
+        out = descend(levels, rows[s:e], frontier_cap)
+        yield s, e, out
+        per_row = max(1, 2 * out[-1] // (d * (e - s)))
+        s = e
 
 
 def device_neighbor_table(sorted_ids: torch.Tensor, num_grids: torch.Tensor,
                           frontier_cap: int = 128, k_cap: int = 64,
-                          include_self: bool = True, packed: bool = True):
+                          include_self: bool = True):
     """Algorithm 3 for every non-empty grid simultaneously.
 
     Args:
@@ -360,15 +392,17 @@ def device_neighbor_table(sorted_ids: torch.Tensor, num_grids: torch.Tensor,
       num_grids:  [] actual number of grids (tensor on the same device).
       frontier_cap: static cap on per-level surviving prefix ranges.
       k_cap: static cap on returned neighbors per grid.
-      packed: sweep only the live-grid prefix (the lex sort parks every
-        live grid in rows [0, num_grids)); costs one host read of
-        ``num_grids``.  The dense path traverses every ``G_cap`` row and
-        masks the dead ones.  Identical results: live rows run the same
-        per-row query either way, dead rows are ``-1`` in both.
 
-    Rows are swept in chunks sized from a memory budget
-    (``ROW_CHUNK_ELEMS``); results are per-row independent, so the chunk
-    size is not part of the semantics.
+    The descent (:func:`descend`) visits the live-grid prefix (the lex
+    sort parks every live grid in rows [0, num_grids)); dead rows are
+    ``-1``.  The reference's ``packed`` choice has no twin here: both of
+    its routes give this table.
+
+    The live rows are queried in chunks sized from a memory budget
+    (``ROW_CHUNK_ELEMS`` entries a level); results are per-row
+    independent, so the chunk size is not part of the semantics.  A
+    truncated frontier keeps the same survivors, and raises the same
+    flag, as the fixed-width frontier of the reference.
 
     Returns:
       nbr:     [G_cap, k_cap] int32 neighbor grid rows (-1 padded),
@@ -379,23 +413,28 @@ def device_neighbor_table(sorted_ids: torch.Tensor, num_grids: torch.Tensor,
     """
     G_cap, d = sorted_ids.shape
     dev = sorted_ids.device
-    n_k = 2 * radius(d) + 1
-    width = min(n_k ** max(d - 1, 0), frontier_cap) * (n_k + 1)
-    chunk = max(64, ROW_CHUNK_ELEMS // max(width, k_cap, 1))
-    n_rows = min(int(host_read(num_grids)), G_cap) if packed else G_cap
+    n_rows = min(int(host_read(num_grids)), G_cap)
+    rows = sorted_ids[:n_rows].to(torch.int64)
+    levels = level_arrays(rows) if n_rows else None
 
     nbr = torch.full((G_cap, k_cap), -1, dtype=torch.int32, device=dev)
     nbr_off = torch.full((G_cap, k_cap), -1, dtype=torch.int32, device=dev)
     ovf_f = torch.zeros((), dtype=torch.bool, device=dev)
     ovf_k = torch.zeros((), dtype=torch.bool, device=dev)
-    for s in range(0, n_rows, chunk):
-        rows = torch.arange(s, min(s + chunk, n_rows), device=dev)
-        live = rows < num_grids
-        g, o, of, ok = _query_rows(sorted_ids, rows, num_grids,
-                                   frontier_cap, k_cap, include_self)
-        neg = torch.full_like(g, -1)
-        nbr[s:s + rows.shape[0]] = torch.where(live[:, None], g, neg)
-        nbr_off[s:s + rows.shape[0]] = torch.where(live[:, None], o, neg)
-        ovf_f = ovf_f | (of & live).any()
-        ovf_k = ovf_k | (ok & live).any()
+    for s, e, (q_of, grid, off, _, over, _) in descend_rows(
+            levels, rows, frontier_cap):
+        if not include_self:
+            other = torch.nonzero(grid != q_of + s)[:, 0]
+            count_read()
+            q_of, grid, off = q_of[other], grid[other], off[other]
+        count = torch.bincount(q_of, minlength=e - s)
+        rank = torch.arange(q_of.shape[0], device=dev) \
+            - (torch.cumsum(count, 0) - count)[q_of]
+        fit = torch.nonzero(rank < k_cap)[:, 0]
+        count_read()
+        flat = (q_of[fit] + s) * k_cap + rank[fit]
+        nbr.view(-1)[flat] = grid[fit].to(torch.int32)
+        nbr_off.view(-1)[flat] = off[fit].to(torch.int32)
+        ovf_f = ovf_f | over.any()
+        ovf_k = ovf_k | (count > k_cap).any()
     return nbr, nbr_off, ovf_f, ovf_k

@@ -4,9 +4,9 @@
                                GriT-DBSCAN-LDF variant (paper §5.2) where the
                                *order* of merge checks matters (low-density
                                first, skip same-set pairs).
-* ``label_propagation``     -- device pointer-jumping min-label propagation:
-                               the data-parallel equivalent of BFS/union-find
-                               (log-depth, fixed shapes).
+* ``label_propagation``     -- device hooking and pointer jumping: the
+                               data-parallel equivalent of BFS/union-find
+                               (fixed shapes, run to the fixpoint).
 """
 
 from __future__ import annotations
@@ -48,9 +48,10 @@ class UnionFind:
 
 
 def label_propagation(num_nodes_cap: int, edges: torch.Tensor,
-                      edge_valid: torch.Tensor, node_valid: torch.Tensor,
-                      max_rounds: int = 0) -> torch.Tensor:
-    """Min-label propagation + pointer jumping over an undirected edge list.
+                      edge_valid: torch.Tensor, node_valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """Connected components by hooking and pointer jumping over an
+    undirected edge list.
 
     Args:
       num_nodes_cap: static node capacity N.
@@ -59,33 +60,35 @@ def label_propagation(num_nodes_cap: int, edges: torch.Tensor,
       node_valid: [N] bool -- labels of invalid nodes come out as N.
 
     Returns labels [N] int32: connected-component representative (min node
-    index in component).  Converges in O(log N) rounds; the loop exits
-    early on a fixpoint, which costs one host read per round.
+    index in component).  Each round hooks the root of every edge's
+    larger endpoint under the smaller root (``amin`` over the edges, so
+    every hook points to a smaller index and the root of a tree is its
+    least node), then jumps pointers until every node points at its
+    root.  It runs to the fixpoint, whatever the graph: propagating
+    labels one hop a round would need rounds in the order of the
+    graph's diameter (a path in shuffled order: 1,567 rounds at 4,096
+    nodes).  One host read a jump and a round.
     """
     N = num_nodes_cap
     dev = edges.device
-    rounds = max_rounds or (int(np.ceil(np.log2(max(N, 2)))) + 2)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
+    # invalid edges are routed to node 0 on both ends: a neutral hook
     u = torch.where(edge_valid, edges[:, 0].to(torch.int64), zero)
     v = torch.where(edge_valid, edges[:, 1].to(torch.int64), zero)
 
     labels = torch.arange(N, dtype=torch.int64, device=dev)
-    for _ in range(rounds):
+    while True:
         lu, lv = labels[u], labels[v]
-        m = torch.minimum(lu, lv)
-        # invalid edges are routed to node 0 with that node's own label:
-        # a neutral update
         new = labels.clone()
-        new.scatter_reduce_(0, u, torch.where(edge_valid, m, lu), "amin",
-                            include_self=True)
-        new.scatter_reduce_(0, v, torch.where(edge_valid, m, lv), "amin",
-                            include_self=True)
-        # pointer jumping: label <- label[label]  (halves tree height)
-        new = new[new]
-        new = new[new]
-        changed = host_read((new != labels).any())
-        labels = new
-        if not changed:
+        new.scatter_reduce_(0, torch.maximum(lu, lv), torch.minimum(lu, lv),
+                            "amin", include_self=True)
+        while True:
+            jumped = new[new]
+            if not host_read((jumped != new).any()):
+                break
+            new = jumped
+        if not host_read((new != labels).any()):
             break
+        labels = new
     labels = torch.where(node_valid, labels, torch.full_like(labels, N))
     return labels.to(torch.int32)

@@ -11,7 +11,11 @@ data structures for static caps; every cap carries an overflow flag.
    bounds ``m_cap`` (core points per grid can never exceed occupancy),
    the small grids' stencil occupancy sums bound ``c_cap``, and the
    stencil bound (3^d - 1, clamped to the exact offset-stencil size)
-   seeds ``k_cap``.  Three integers come back to the host.
+   seeds ``k_cap``.  Three integers come back to the host.  Where
+   probing the stencil of every small grid would exceed
+   ``PROBE_BUDGET`` (at d = 7 the stencil has 197,067 offsets), the
+   census walks the grid tree instead, and the most neighbours and the
+   widest level it meets size ``k_cap`` and ``frontier_cap``.
 2. :func:`adaptive_device_dbscan` runs the pipeline, reads the per-cap
    :class:`OverflowReport` (one host read per attempt), geometrically
    grows exactly the caps that overflowed, and retries.  Caps are
@@ -44,7 +48,8 @@ from .. import obs
 from ..core.device_dbscan import (GritCaps, DeviceDBSCANResult,
                                   OverflowReport, device_dbscan)
 from ..core.grids import identifiers
-from ..core.grid_tree import offset_stencil, radius
+from ..core.grid_tree import (GridTree, descend_rows, level_arrays,
+                               offset_stencil, radius)
 from ..core.sync import count_read, host_read
 
 
@@ -161,48 +166,72 @@ def candidate_census(points: np.ndarray, eps: float, min_pts: int,
     candidate scan entirely, so they don't constrain ``c_cap``.
 
     Vectorized: one ``searchsorted`` over the lex-sorted grid ids per
-    stencil offset -- O(|stencil| * G log G)."""
+    stencil offset -- O(|stencil| * G log G); where the small grids
+    times the stencil exceed ``PROBE_BUDGET`` probes, the host grid
+    tree's query of the small grids instead."""
+    return _host_census(points, eps, min_pts, point_valid)[0]
+
+
+def _host_census(points, eps: float, min_pts: int, point_valid=None
+                 ) -> Tuple[int, int, int]:
+    """(:func:`candidate_census`, the small grids, the stencil probes or
+    the tree's neighbour entries it examined)."""
     pts = np.asarray(points, np.float64)
     if point_valid is not None:
         pts = pts[np.asarray(point_valid, bool)]
     if len(pts) == 0:
-        return 1
+        return 1, 0, 0
     d = pts.shape[1]
     ids, _, _ = identifiers(pts, eps)
     uids, counts = _unique_rows(ids)
     small = counts < min_pts
-    if not small.any():
-        return 1
+    n_small = int(small.sum())
+    if not n_small:
+        return 1, 0, 0
+    deltas, _ = offset_stencil(d)
+    if n_small * len(deltas) > PROBE_BUDGET:
+        # the grid tree's neighbour sets are the stencil's non-empty
+        # grids (the same offset < d rule), found without probing it
+        indptr, grid, _ = GridTree.build(uids).query(uids[small])
+        totals = np.add.reduceat(counts[grid], indptr[:-1])
+        return int(totals.max()), n_small, len(grid)
     r = radius(d)
     base = uids.max(axis=0) + 2 * r + 1
     keyed = _row_keys(uids, r, base) is not None
     to_keys = (lambda a: _row_keys(a, r, base)) if keyed else _lex_rows
     keys = to_keys(uids)                         # sorted (unique rows)
-    totals = np.zeros(int(small.sum()), np.int64)
-    deltas, _ = offset_stencil(d)
+    totals = np.zeros(n_small, np.int64)
     for delta in np.asarray(deltas, np.int64):
         probe = to_keys(uids[small] + delta)
         pos = np.searchsorted(keys, probe)
         pos = np.minimum(pos, len(keys) - 1)
         hit = keys[pos] == probe
         totals += np.where(hit, counts[pos], 0)
-    return int(totals.max())
+    return int(totals.max()), n_small, n_small * len(deltas)
 
 
 def _caps_from_stats(n: int, d: int, num_grids: int, max_occ: int,
                      cand_max: int, margin: float, extra_grids: int,
-                     use_kernels: bool) -> GritCaps:
+                     use_kernels: bool, max_nbrs: Optional[int] = None,
+                     widest: Optional[int] = None) -> GritCaps:
     """``GritCaps`` from (grid count, max occupancy, max small-grid
-    candidate total) -- the quantization/clamp discipline of the estimator."""
+    candidate total) -- the quantization/clamp discipline of the
+    estimator -- and, where the census walked the grid tree, the most
+    neighbours of a grid and its widest level."""
     grid_cap = _pow2_at_least(
         int(math.ceil(num_grids * margin)) + extra_grids, lo=8)
     grid_block = min(64, grid_cap)
 
     # 3^d - 1 stencil heuristic, clamped to the exact offset-stencil
     # size (the provable per-grid neighbor maximum); at low d the exact
-    # bound is small enough to just provision outright
+    # bound is small enough to just provision outright.  A census that
+    # walked the tree measured the most neighbours: that, with the
+    # estimate's margin (the pipeline's float32 identifiers can move a
+    # boundary point into another grid)
     bound = stencil_neighbor_bound(d)
     k_est = bound if bound <= 32 else max(3 ** d - 1, 8)
+    if max_nbrs is not None:
+        k_est = int(math.ceil(max_nbrs * margin))
     k_cap = _mult8(min(k_est, bound, max(grid_cap - 1, 1)))
 
     m_cap = _mult8(max_occ)
@@ -226,6 +255,8 @@ def _caps_from_stats(n: int, d: int, num_grids: int, max_occ: int,
     r = 2 * radius(d) + 1
     frontier_cap = _pow2_at_least(
         2 * min(int(r ** max(d - 1, 1)), 256), lo=32)
+    if widest is not None:
+        frontier_cap = _pow2_at_least(int(math.ceil(widest * margin)), lo=32)
 
     # paper Theorem 3: FastMerging terminates within |s_i| + |s_j|
     # iterations; the batched loop stops once every pair is decided, so
@@ -241,8 +272,34 @@ def _caps_from_stats(n: int, d: int, num_grids: int, max_occ: int,
 
 #: elements of one chunk of the census's probe matrix (int64: 32 MiB)
 PROBE_CHUNK = 1 << 22
+#: stencil probes (small grids x offsets) above which the census walks
+#: the grid tree instead of probing the stencil: one chunk of them.
+#: Within it the probes are the cheaper route: on 10^6 seed-spreader
+#: points at eps 5,000 on an H100, 1.4 ms against the walk's 5.3 ms at
+#: d = 3 and 9.6 ms at d = 5 (one launch a chunk against two host reads
+#: a level)
+PROBE_BUDGET = PROBE_CHUNK
 #: key of the rows that count nowhere: above every key that fits
 _NO_KEY = torch.iinfo(torch.int64).max
+
+
+@dataclasses.dataclass(frozen=True)
+class GridCensus:
+    """The estimate's statistics of the valid points' grids: the grid
+    count, the largest occupancy, the most candidates of a grid below
+    MinPts (1 when there is none), the grids below MinPts, and the
+    stencil probes or grid-tree entries the census examined.  Where the
+    census walked the grid tree it also knows the most non-empty
+    neighbours of a grid and the most prefixes a grid's query keeps at
+    one level (``max_nbrs``, ``widest``)."""
+
+    num_grids: int
+    max_occ: int
+    cand_max: int
+    small: int = 0
+    probes: int = 0
+    max_nbrs: Optional[int] = None
+    widest: Optional[int] = None
 
 
 def device_identifiers(x: torch.Tensor, eps: float, valid: torch.Tensor
@@ -263,34 +320,82 @@ def device_identifiers(x: torch.Tensor, eps: float, valid: torch.Tensor
     return torch.where(valid[:, None], torch.floor((x - mins) / side), 0.0)
 
 
-def device_grid_stats(x: torch.Tensor, eps: float, min_pts: int,
-                      valid: Optional[torch.Tensor] = None
-                      ) -> Optional[Tuple[int, int, int]]:
-    """``(num_grids, max_occ, cand_max)`` of :func:`grid_stats` and
-    :func:`candidate_census`, computed with torch operations where ``x``
-    lives; None where the padded identifier rows do not fit an int64
-    key (the host functions then take over).
+def _stencil_census(keys, small_keys, n_small, stride, d):
+    """The most candidates of a small grid: its stencil's probes, each
+    ``key + sum_j delta_j * stride_j``, their grids' occupancies the
+    widths of their runs in the sorted ``keys`` (a 0-d tensor)."""
+    dev = keys.device
+    deltas, _ = offset_stencil(d)
+    step = (torch.as_tensor(np.asarray(deltas, np.int64)).to(dev)
+            * stride).sum(1)
+    rows = max(1, PROBE_CHUNK // len(step))
+    best = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, n_small, rows):
+        probe = small_keys[lo:min(lo + rows, n_small), None] + step
+        width = (torch.searchsorted(keys, probe, right=True)
+                 - torch.searchsorted(keys, probe))
+        best = torch.maximum(best, width.sum(1).max())
+    return best
+
+
+def _tree_census(gkeys, occ, small, base, d):
+    """The grid tree walked for every grid (``grid_tree.descend_rows``): a
+    grid's candidates are the occupancies of its leaves, itself
+    included.  Returns ``(cand_max, max_nbrs, widest)`` as 0-d tensors
+    and the entries expanded (a host int)."""
+    dev = gkeys.device
+    rows = torch.stack([torch.div(gkeys, math.prod(base[j + 1:]),
+                                  rounding_mode="floor") % base[j]
+                        for j in range(d)], 1)
+    levels = level_arrays(rows)
+    cand = torch.zeros((), dtype=torch.int64, device=dev)
+    nbrs = torch.zeros((), dtype=torch.int64, device=dev)
+    widest = torch.zeros((), dtype=torch.int64, device=dev)
+    entries = 0
+    for s, e, (q_of, grid, _, wide, _, n) in descend_rows(levels, rows):
+        entries += n
+        total = torch.zeros(e - s, dtype=torch.int64, device=dev).index_add_(
+            0, q_of, occ[grid])
+        cand = torch.maximum(cand, torch.where(small[s:e], total, 0).max())
+        nbrs = torch.maximum(nbrs, torch.bincount(q_of, minlength=e - s).max())
+        widest = torch.maximum(widest, wide.max())
+    return cand, nbrs - 1, widest, entries
+
+
+def device_grid_census(x: torch.Tensor, eps: float, min_pts: int,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Optional[GridCensus]:
+    """The statistics of :func:`grid_stats` and :func:`candidate_census`,
+    computed with torch operations where ``x`` lives; None where the
+    padded identifier rows do not fit an int64 key (the host functions
+    then take over).
 
     The rows' keys are those of ``_row_keys`` with the census's padding,
     sorted once: a run of equal keys is a grid, its length the grid's
-    occupancy.  A key is linear in the identifier, so the probe of a
-    stencil offset is ``key + sum_j delta_j * stride_j``, and the
-    occupancy of a probed grid is the width of its run in the sorted
-    keys (two ``searchsorted``, 0 for an empty grid).  Invalid rows take
-    a key above every probe.  Three host reads, each a few integers:
-    the identifiers' per-axis maximum, the grid counts, ``cand_max``.
+    occupancy.  A small grid's candidates are the occupancies of the
+    non-empty grids at offset < d, its stencil.  Where the small grids
+    times the stencil stay within ``PROBE_BUDGET``, each stencil offset
+    is probed: a key is linear in the identifier, so a probe is ``key +
+    sum_j delta_j * stride_j`` and its grid's occupancy the width of its
+    run in the sorted keys (two ``searchsorted``).  Beyond it (the 7-D
+    stencil has 197,067 offsets) the census walks the grid tree over
+    the keys' rows for every grid, at the cost of the non-empty
+    neighbours, and learns the most neighbours and the widest level on
+    the way.  Invalid rows take a key above every probe.  The stencil
+    costs three host reads, each a few integers; the walk two a level
+    of each chunk of grids, and its level arrays one a level.
     """
     n, d = x.shape
     dev = x.device
     if n == 0:
-        return 1, 1, 1
+        return GridCensus(1, 1, 1)
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
     ids = device_identifiers(x, eps, valid)
     head = host_read(torch.cat([valid.sum().to(torch.float64)[None],
                                 ids.amax(0)]))
     if head[0] == 0:
-        return 1, 1, 1
+        return GridCensus(1, 1, 1)
     r = radius(d)
     base = [int(t) + 2 * r + 1 for t in head[1:]]
     if math.prod(base) >= 1 << 62:
@@ -309,20 +414,28 @@ def device_grid_stats(x: torch.Tensor, eps: float, min_pts: int,
     num_grids, max_occ, n_small = host_read(
         torch.stack([last.sum(), occ.max(), small.sum()]))
     if n_small == 0:
-        return num_grids, max_occ, 1
+        return GridCensus(num_grids, max_occ, 1)
 
-    small_keys = torch.sort(torch.where(small, keys, _NO_KEY)).values
-    deltas, _ = offset_stencil(d)
-    step = (torch.as_tensor(np.asarray(deltas, np.int64)).to(dev)
-            * stride).sum(1)
-    rows = max(1, PROBE_CHUNK // len(step))
-    best = torch.zeros((), dtype=torch.int64, device=dev)
-    for lo in range(0, n_small, rows):
-        probe = small_keys[lo:min(lo + rows, n_small), None] + step
-        width = (torch.searchsorted(keys, probe, right=True)
-                 - torch.searchsorted(keys, probe))
-        best = torch.maximum(best, width.sum(1).max())
-    return num_grids, max_occ, host_read(best)
+    stencil = len(offset_stencil(d)[0])
+    with obs.span("adaptive.census", small=n_small) as sp:
+        if n_small * stencil <= PROBE_BUDGET:
+            small_keys = torch.sort(torch.where(small, keys, _NO_KEY)).values
+            cand_max = host_read(_stencil_census(keys, small_keys, n_small,
+                                                 stride, d))
+            census = GridCensus(num_grids, max_occ, cand_max, n_small,
+                                n_small * stencil)
+        else:
+            at = torch.nonzero(last)[:, 0]
+            count_read()
+            cand, nbrs, widest, entries = _tree_census(
+                keys[at], occ[at], small[at], base, d)
+            cand_max, max_nbrs, widest = host_read(
+                torch.stack([cand, nbrs, widest]))
+            census = GridCensus(num_grids, max_occ, cand_max, n_small,
+                                entries, max_nbrs, widest)
+        sp.set(probes=census.probes,
+               route="stencil" if census.max_nbrs is None else "tree")
+    return census
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -340,7 +453,7 @@ def estimate_caps(points, eps: float, min_pts: int,
 
     The statistics are computed where ``points`` lives: a tensor on its
     own device, a numpy array on the port's CUDA device when there is
-    one and on the CPU when there is none (:func:`device_grid_stats`).
+    one and on the CPU when there is none (:func:`device_grid_census`).
     Identifier rows too wide for an int64 key take the host functions.
     Counter ``adaptive.estimate_caps.device`` / ``.host`` and the span's
     ``where`` say which ran.
@@ -363,8 +476,8 @@ def estimate_caps(points, eps: float, min_pts: int,
                                 else torch.float64).to(dev)
         valid = (None if point_valid is None else
                  torch.as_tensor(point_valid, dtype=torch.bool).to(x.device))
-        stats = device_grid_stats(x, eps, min_pts, valid)
-        if stats is not None:
+        census = device_grid_census(x, eps, min_pts, valid)
+        if census is not None:
             where = str(x.device)
         else:
             where = "host"
@@ -372,13 +485,16 @@ def estimate_caps(points, eps: float, min_pts: int,
                 host = _host_copy(x)
             if isinstance(point_valid, torch.Tensor):
                 point_valid = _host_copy(point_valid)
-            stats = (*grid_stats(host, eps, point_valid),
-                     candidate_census(host, eps, min_pts, point_valid))
+            census = GridCensus(*grid_stats(host, eps, point_valid),
+                                *_host_census(host, eps, min_pts,
+                                              point_valid))
         sp.set(where=where)
         obs.counter("adaptive.estimate_caps."
                     + ("host" if where == "host" else "device")).inc()
-        return _caps_from_stats(n, d, *stats, margin, extra_grids,
-                                use_kernels)
+        obs.gauge("adaptive.census.probes").set(census.probes)
+        return _caps_from_stats(n, d, census.num_grids, census.max_occ,
+                                census.cand_max, margin, extra_grids,
+                                use_kernels, census.max_nbrs, census.widest)
 
 
 def _shard_point_sets(points: np.ndarray, eps: float, n_shards: int):

@@ -31,8 +31,10 @@
 // last slot ragged (rows_total = M).
 //
 // The TPU kernels form aa + bb - 2ab on the matrix unit over 128-wide
-// feature lanes.  Here d <= 5 in every catalogue deployment, so the
-// distance is sum_k (a_k - b_k)^2 in f32 registers: no cancellation, no
+// feature lanes.  Here d is a handful (the paper's data sets have d = 2,
+// 3, 5 and 7; dispatch_dist instantiates the kernel for d <= 5 and runs
+// any other d <= kMaxRegD on the instance that reads d at run time), so
+// the distance is sum_k (a_k - b_k)^2 in f32 registers: no cancellation, no
 // tensor core, no feature padding (built with -fmad=false, so each term
 // is a rounded multiply followed by a rounded add, in the order k = 0..d-1,
 // which is the arithmetic of the plain PyTorch version).  Validity is a

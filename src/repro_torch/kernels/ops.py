@@ -101,9 +101,32 @@ FLASH_HEAD_DIMS = (16, 32, 64, 80, 128)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: feature dims that ``dispatch_dist`` (``csrc/pairwise.cu``) instantiates
+#: the distance kernel at; any other d takes the kernel that reads d at
+#: run time
+DIST_DIMS = (1, 2, 3, 4, 5)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def dist_launch_route(d: int) -> str:
+    """The distance kernel a launch at feature dim ``d`` runs:
+    ``"packed"`` (d <= 3, float4 items), ``"planes"`` (an instantiated
+    d above 3, one plane per coordinate) or ``"runtime_d"`` (the planes
+    kernel that reads d at run time)."""
+    if d <= 3:
+        return "packed"
+    return "planes" if d in DIST_DIMS else "runtime_d"
+
+
+def _count_dist_launch(name: str, d: int) -> None:
+    """One distance launch: ``LAUNCHES[name]`` and the counter
+    ``kernels.dist.<route>`` of its route (:func:`dist_launch_route`)."""
+    LAUNCHES[name] += 1
+    obs.counter(f"kernels.dist.{dist_launch_route(d)}").inc()
 
 
 def _eps2(eps) -> float:
@@ -430,7 +453,7 @@ def _launch_eps_count(name, a, b, vb, va, eps2, stop_at, slots,
             slots, rows_per_slot, rows_total, C, a.shape[-1], b_stride,
             vb_stride, eps2, stop_at, _stream(a.device))
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _count_dist_launch(name, a.shape[-1])
     return out
 
 
@@ -444,7 +467,7 @@ def _launch_row_min(name, a, b, vb, slots, rows_per_slot, rows_total, C,
             args.data_ptr(), slots, rows_per_slot, rows_total, C,
             a.shape[-1], b_stride, vb_stride, _stream(a.device))
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _count_dist_launch(name, a.shape[-1])
     return mins, args
 
 
@@ -559,7 +582,7 @@ def _band_op(a, b, vb, stop_row, lo2, hi2):
             lo.data_ptr(), hi.data_ptr(), B, M, N, d, lo2, hi2,
             _stream(a.device))
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _count_dist_launch(name, a.shape[-1])
     return lo, hi
 
 
@@ -584,7 +607,7 @@ def _row_min2_op(a, b, vb):
             mins2.data_ptr(), args.data_ptr(), B, M, N, d,
             _stream(a.device))
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    _count_dist_launch(name, a.shape[-1])
     return mins, mins2, args
 
 

@@ -324,6 +324,12 @@ class Stages:
         if i + 1 < len(self.names):
             self._begin(i + 1, device, end)
 
+    def set(self, **attrs: Any) -> None:
+        """Attach attributes to the open stage's span (nothing while
+        tracing is off)."""
+        if self._open is not None:
+            self._open[0].set(**attrs)
+
     def close(self) -> None:
         """End a stage span that an error left open (recorded as an
         error)."""

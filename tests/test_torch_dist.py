@@ -37,6 +37,7 @@ from repro.dist.sharding import unshard_by_perm as junshard
 from repro.engine import estimate_shard_caps as jestimate_shard_caps
 from repro_torch import convert, obs
 from repro_torch import dist as tdist
+from repro_torch.core import labels as tlabels
 from repro_torch.core.dbscan import brute_dbscan
 from repro_torch.core.device_dbscan import PAD_COORD
 from repro_torch.core.sync import STAGE_ORDER
@@ -247,7 +248,10 @@ def test_shared_point_edges_equal_reference(seed):
 def test_global_component_map_equal_reference():
     """Four shards' edge lists: the port concatenates them in shard
     order; the reference's map is ``label_propagation`` over what its
-    ``all_gather`` concatenates."""
+    ``all_gather`` concatenates.  The port's map is the union-find's
+    components of the concatenated edges.  The reference's stops at its
+    round cap (log2(64) + 2) three nodes short of them here, which the
+    port's ``label_propagation`` (run to its fixpoint) does not."""
     L, n_shards = 16, 4
     edges, oks = [], []
     for s in range(n_shards):
@@ -260,11 +264,20 @@ def test_global_component_map_equal_reference():
     got = treconcile.global_component_map(edges, oks, n_shards, L)
     all_e = np.concatenate([e.numpy() for e in edges])
     all_ok = np.concatenate([o.numpy() for o in oks])
-    ref = jlabel_propagation(n_shards * L,
-                             jnp.maximum(jnp.asarray(all_e), 0),
-                             jnp.asarray(all_ok),
-                             jnp.ones((n_shards * L,), bool))
-    np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    ref = np.asarray(jlabel_propagation(n_shards * L,
+                                        jnp.maximum(jnp.asarray(all_e), 0),
+                                        jnp.asarray(all_ok),
+                                        jnp.ones((n_shards * L,), bool)))
+    uf = tlabels.UnionFind(n_shards * L)
+    for (u, v), ok in zip(np.maximum(all_e.reshape(-1, 2), 0),
+                          all_ok.reshape(-1)):
+        if ok:
+            uf.union(int(u), int(v))
+    roots = uf.labels()
+    want = np.array([np.flatnonzero(roots == roots[i]).min()
+                     for i in range(n_shards * L)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (ref != want).sum() == 3
     assert len(np.unique(got.numpy())) < n_shards * L
 
 

@@ -34,6 +34,12 @@ TINY = dict(grid_cap=8, frontier_cap=8, k_cap=8, c_cap=16, m_cap=8,
             pair_cap=16, grid_block=8, pair_block=8, merge_iters=20)
 
 
+def _grid_stats(x, eps, min_pts, valid=None):
+    """``(num_grids, max_occ, cand_max)`` of the device census, or None."""
+    c = tadaptive.device_grid_census(x, eps, min_pts, valid)
+    return None if c is None else (c.num_grids, c.max_occ, c.cand_max)
+
+
 @pytest.fixture(scope="module")
 def brute():
     """Port brute results, one per scenario, shared by the module."""
@@ -189,11 +195,11 @@ def test_estimate_caps_on_a_cpu_tensor_equal(name):
                 after["host"] - before["host"]) == (1, 0)
         assert dataclasses.asdict(got) == dataclasses.asdict(
             jengine.estimate_caps(pts, sc.eps, sc.min_pts, **kw))
-    assert tadaptive.device_grid_stats(x, sc.eps, sc.min_pts) == (
+    assert _grid_stats(x, sc.eps, sc.min_pts) == (
         *jengine.grid_stats(pts, sc.eps),
         jengine.candidate_census(pts, sc.eps, sc.min_pts))
     none = torch.zeros(len(pts), dtype=torch.bool)
-    assert tadaptive.device_grid_stats(x, sc.eps, sc.min_pts, none) == \
+    assert _grid_stats(x, sc.eps, sc.min_pts, none) == \
         (1, 1, 1)
 
 
@@ -258,7 +264,7 @@ def test_a_key_space_beyond_int64_takes_the_host_statistics():
     pts = rng.uniform(0, 1e5, size=(400, 5))
     pts[:200] = pts[0] + rng.uniform(0, 30.0, size=(200, 5))
     eps = 0.6                       # span/side ~ 3.7e5 per dim, 5 dims
-    assert tadaptive.device_grid_stats(torch.as_tensor(pts), eps, 4) is None
+    assert _grid_stats(torch.as_tensor(pts), eps, 4) is None
     valid = np.arange(len(pts)) % 3 != 0
     for x in (pts, torch.as_tensor(pts)):
         for kw in (dict(), dict(point_valid=valid)):

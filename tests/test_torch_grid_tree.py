@@ -48,27 +48,30 @@ def test_neighbor_table_equal(name):
     got = ttree.device_neighbor_table(dg.ids, dg.num_grids, **kw)
     _assert_tables_equal(ref, got)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.int32
-    dense = ttree.device_neighbor_table(dg.ids, dg.num_grids, packed=False,
-                                        **kw)
-    _assert_tables_equal(got, dense)
+    dense = jtree.device_neighbor_table(ref_dg.ids, ref_dg.num_grids,
+                                        packed=False, **kw)
+    _assert_tables_equal(dense, got)
     tables = convert.neighbor_table_to_numpy(got[0], got[1])
     back = convert.neighbor_table_from_numpy(*tables)
     assert torch.equal(back[0], got[0]) and torch.equal(back[1], got[1])
 
 
-@pytest.mark.parametrize("name,kw", [
-    ("blobs-2d", dict(frontier_cap=128, k_cap=64, include_self=True)),
-    ("blobs-3d", dict(frontier_cap=4, k_cap=48, include_self=False)),
-    ("blobs-3d", dict(frontier_cap=64, k_cap=4, include_self=False)),
-    ("simden-5d", dict(frontier_cap=8, k_cap=8, include_self=True,
-                       packed=False)),
-    ("duplicates-2d", dict(frontier_cap=2, k_cap=300, include_self=False)),
+@pytest.mark.parametrize("name,kw,ref_kw", [
+    ("blobs-2d", dict(frontier_cap=128, k_cap=64, include_self=True), {}),
+    ("blobs-3d", dict(frontier_cap=4, k_cap=48, include_self=False), {}),
+    ("blobs-3d", dict(frontier_cap=64, k_cap=4, include_self=False), {}),
+    ("simden-5d", dict(frontier_cap=8, k_cap=8, include_self=True),
+     dict(packed=False)),
+    ("duplicates-2d", dict(frontier_cap=2, k_cap=300, include_self=False),
+     {}),
 ])
-def test_neighbor_table_equal_under_tiny_caps(name, kw):
+def test_neighbor_table_equal_under_tiny_caps(name, kw, ref_kw):
     """Too-small caps truncate the same way and raise the same flags;
-    a k_cap wider than the leaf level pads the same way."""
+    a k_cap wider than the leaf level pads the same way (the reference's
+    dense route too: the port has the one)."""
     ref_dg, dg, _ = _ref_grids(name, pad=5)
-    ref = jtree.device_neighbor_table(ref_dg.ids, ref_dg.num_grids, **kw)
+    ref = jtree.device_neighbor_table(ref_dg.ids, ref_dg.num_grids, **kw,
+                                      **ref_kw)
     got = ttree.device_neighbor_table(dg.ids, dg.num_grids, **kw)
     _assert_tables_equal(ref, got)
 
@@ -80,10 +83,8 @@ def test_row_chunking_is_not_part_of_the_result(monkeypatch):
     whole = ttree.device_neighbor_table(dg.ids, dg.num_grids, **kw)
     monkeypatch.setattr(ttree, "ROW_CHUNK_ELEMS", 1)     # 64-row chunks
     assert int(dg.num_grids) > 64
-    for packed in (True, False):
-        parts = ttree.device_neighbor_table(dg.ids, dg.num_grids,
-                                            packed=packed, **kw)
-        _assert_tables_equal(whole, parts)
+    parts = ttree.device_neighbor_table(dg.ids, dg.num_grids, **kw)
+    _assert_tables_equal(whole, parts)
 
 
 @pytest.mark.parametrize("name", ["blobs-2d", "blobs-3d", "simden-5d"])

@@ -126,15 +126,46 @@ def test_label_propagation_equal(seed):
     assert (lab[~node_valid] == n).all()
 
 
-def test_label_propagation_honours_max_rounds():
-    n = 64
-    edges = np.stack([np.arange(n - 1), np.arange(1, n)], 1).astype(np.int32)
-    ok = np.ones(n - 1, bool)
-    nodes = np.ones(n, bool)
-    want = jlabels.label_propagation(n, jnp.asarray(edges), jnp.asarray(ok),
-                                     jnp.asarray(nodes), max_rounds=1)
+@pytest.mark.parametrize("n,seed", [(64, 0), (4096, 1), (4096, 2)])
+def test_label_propagation_reaches_the_fixpoint_on_a_shuffled_path(n, seed):
+    """A path over the nodes in shuffled order is one component.  Labels
+    that move one hop a round (the reference's rule, capped at
+    log2(n) + 2 rounds) stop far short of it: 123 components at n =
+    4,096; hooking roots and jumping pointers runs to the fixpoint."""
+    perm = np.random.default_rng(seed).permutation(n)
+    edges = np.stack([perm[:-1], perm[1:]], 1).astype(np.int32)
     got = tlabels.label_propagation(n, torch.as_tensor(edges),
-                                    torch.as_tensor(ok),
-                                    torch.as_tensor(nodes), max_rounds=1)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert got.max() > 0            # one round does not reach the fixpoint
+                                    torch.ones(n - 1, dtype=torch.bool),
+                                    torch.ones(n, dtype=torch.bool))
+    assert (got == 0).all()
+    if n == 4096:
+        ref = np.asarray(jlabels.label_propagation(
+            n, jnp.asarray(edges), jnp.ones(n - 1, bool), jnp.ones(n, bool)))
+        assert len(np.unique(ref)) > 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_label_propagation_is_the_union_find_on_random_graphs(seed):
+    """Sparse random graphs with many components, invalid edges and
+    invalid nodes: every valid node gets the least node of its
+    union-find component, every invalid one ``n``."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    e = int(n * rng.uniform(0.4, 1.1))
+    edges = rng.integers(0, n, size=(e, 2)).astype(np.int32)
+    edge_valid = rng.uniform(size=e) > 0.2
+    node_valid = rng.uniform(size=n) > 0.05
+    got = tlabels.label_propagation(n, torch.as_tensor(edges),
+                                    torch.as_tensor(edge_valid),
+                                    torch.as_tensor(node_valid)).numpy()
+    uf = tlabels.UnionFind(n)
+    for (u, v), ok in zip(edges, edge_valid):
+        if ok:
+            uf.union(int(u), int(v))
+    roots = uf.labels()
+    least = {}
+    for i in range(n):
+        least.setdefault(roots[i], i)
+    want = np.array([least[roots[i]] for i in range(n)])
+    np.testing.assert_array_equal(got[node_valid], want[node_valid])
+    assert (got[~node_valid] == n).all()

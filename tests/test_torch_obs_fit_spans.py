@@ -2,7 +2,8 @@
 
 A traced ``cluster(..., engine="device-kernels")`` records
 ``engine.cluster`` > ``engine.cluster.prepare``, ``adaptive.upload``,
-``adaptive.estimate_caps``, one ``adaptive.attempt`` per try (each >
+``adaptive.estimate_caps`` (> ``adaptive.census``), one
+``adaptive.attempt`` per try (each >
 the seven ``device_dbscan.<stage>`` spans) and
 ``engine.cluster.finish``.  Pinned on the CPU:
 
@@ -38,7 +39,9 @@ STAGES = tuple(f"device_dbscan.{s}" for s in sync.STAGE_ORDER)
 CHILDREN = ("engine.cluster.prepare", "adaptive.upload",
             "adaptive.estimate_caps", "adaptive.attempt",
             "engine.cluster.finish")
-FIT_SPANS = {"engine.cluster", *CHILDREN, *STAGES}
+#: inside ``adaptive.estimate_caps``, where some grid is below MinPts
+CENSUS = "adaptive.census"
+FIT_SPANS = {"engine.cluster", *CHILDREN, CENSUS, *STAGES}
 EPS, MIN_PTS = 1.5, 4
 
 
@@ -120,7 +123,8 @@ def test_fit_spans_lie_in_the_profiler_trace_nested_as_recorded(
     got = tree(ranges)
     assert got == tree(events)
     want = ([("engine.cluster", None)]
-            + [(c, "engine.cluster") for c in CHILDREN[:3]])
+            + [(c, "engine.cluster") for c in CHILDREN[:3]]
+            + [(CENSUS, "adaptive.estimate_caps")])
     for _ in range(2):
         want += [("adaptive.attempt", "engine.cluster")]
         want += [(s, "adaptive.attempt") for s in STAGES]
@@ -135,6 +139,9 @@ def test_fit_spans_lie_in_the_profiler_trace_nested_as_recorded(
     (est,) = [e for e in events if e["name"] == "adaptive.estimate_caps"]
     # the padded input, estimated on the tensor the fit uploaded
     assert est["args"] == {"n": 512, "d": 3, "where": "cpu"}
+    (census,) = [e for e in events if e["name"] == CENSUS]
+    assert census["args"]["route"] == "stencil"
+    assert census["args"]["probes"] == census["args"]["small"] * 117
 
 
 def test_direct_children_cover_the_fit_and_stages_lie_in_attempts(
