@@ -2,18 +2,19 @@
 to back, each from host points to host labels and core flags, with no
 caps passed, as a user clusters a new snapshot of a table.
 
-Each call gets the configuration's points in a fresh row order; the
-orders are drawn from the seed and the inputs made in set-up, after
-``warmup_fits`` whole fits on orders of their own (the quickest of them
-sizes the window's store of inputs).  The window ends with the last fit started
-before ``--seconds`` ran out; ``fit_s`` is the window's time over the
-fits it completed.  Every fit of the run is judged, rows put back in the
-configuration's order, against the float64 brute DBSCAN of the points.
+Set-up runs ``warmup_fits`` whole fits on row orders of their own, then
+makes a fixed store of ``input_orders`` inputs, the configuration's
+points in as many further row orders drawn from the seed.  The window's
+i-th fit gets input ``i % input_orders``, so consecutive fits differ in
+row order and the store, and with it set-up, does not grow as fits get
+faster.  The window ends with the last fit started before ``--seconds``
+ran out; ``fit_s`` is the window's time over the fits it completed.
+Every fit of the run is judged, its rows put back with the order it got,
+against the float64 brute DBSCAN of the points.
 """
 
 from __future__ import annotations
 
-import math
 import time
 
 import numpy as np
@@ -66,37 +67,34 @@ class Driver:
         self.pts = data.cell_points(self.cfg, self.run.seed)
         self.orders = {}
         warm = int(self.traffic.get("warmup_fits", 1))
-        t_fit = math.inf
         say(f"points {self.pts.shape}, eps {self.eps}, min_pts {self.min_pts}")
         for k in range(warm):
             t0 = time.perf_counter()
-            res = self._fit(k, self.pts[self._order(k)])
-            t_fit = min(t_fit, time.perf_counter() - t0)
+            res = self._fit(k)
             say(f"warm-up fit {k}: {time.perf_counter() - t0:.3f} s, "
                 f"{res.n_clusters} clusters, {len(res.attempts)} attempts "
                 f"{[list(a['overflow']) for a in res.attempts]}")
         self.first = warm
         # every input of the window is made here: one made in the window
         # would add its permutation (0.1 - 0.2 s at 10^6 points) to a fit
-        need = int(math.ceil(self.run.seconds / t_fit * 2)) + 2
-        self.inputs = [self.pts[self._order(self.first + i)]
-                       for i in range(need)]
+        self.inputs = [self.pts[self._order(self.first + s)]
+                       for s in range(int(self.traffic["input_orders"]))]
+        say(f"store of {len(self.inputs)} window inputs made")
 
     def window(self, trace) -> dict:
-        """The fits of the window; a trace (``--trace 1``) covers the first
-        ``TRACE_FITS`` of them."""
+        """The fits of the window, cycling over the store of inputs; a
+        trace (``--trace 1``) covers the first ``TRACE_FITS`` of them."""
         sync = self.sync
         per_fit = []
         deadline = time.perf_counter() + self.run.seconds
         t0 = time.perf_counter()
         i = 0
         while i == 0 or time.perf_counter() < deadline:
-            x = (self.inputs[i] if i < len(self.inputs)
-                 else self.pts[self._order(self.first + i)])
+            s = i % len(self.inputs)
             sync.READS["count"] = 0
             t_fit = time.perf_counter()
             with record_function(f"{SPAN}{i}"):
-                res = self._fit(self.first + i, x)
+                res = self._fit(self.first + s, self.inputs[s])
             say(f"fit {i}: {time.perf_counter() - t_fit:.3f} s")
             per_fit.append({"attempts": len(res.attempts),
                             "host_reads": sync.READS["count"]})

@@ -2,12 +2,16 @@
 the rest of a run, driven on the CPU at a small size, comes out correct
 on the sound program and not correct with the timed path broken
 underneath: a label altered where it is produced, a fit that returns an
-earlier state unchanged, half of the points left out."""
+earlier state unchanged, half of the points left out.  The fit driver's
+set-up makes a fixed store of inputs whatever a fit takes, and its
+window cycles over that store."""
 
 import json
 import shutil
 import subprocess
 import sys
+import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +21,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-from gritbench import harness  # noqa: E402
+from gritbench import data, harness  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "gritbench"))
 import run as run_py  # noqa: E402
@@ -134,6 +138,60 @@ def test_half_of_the_points_left_out_fails(engine):
     monkeypatch.setattr(eng, "cluster", half)
     out = go("fit.ss-varden-3d")
     assert not out["correct"] and out["failed"] >= 1
+
+
+def fit_driver(cell, seed, seconds):
+    run = run_py.Run(cell=cell, seed=seed, seconds=seconds, trace=False,
+                     device="cpu")
+    return harness.driver(cell.traffic["kind"]).Driver(run)
+
+
+@pytest.mark.parametrize("fit_s", [0.01, 0.3])
+def test_set_up_makes_the_store_of_inputs_whatever_a_fit_takes(engine,
+                                                                fit_s):
+    monkeypatch, eng = engine
+
+    def stub(x, *a, **k):
+        time.sleep(fit_s)
+        return types.SimpleNamespace(labels=np.zeros(len(x), np.int64),
+                                     core=np.zeros(len(x), bool),
+                                     n_clusters=0, attempts=[])
+    monkeypatch.setattr(eng, "cluster", stub)
+    cell = small("fit.ss-varden-3d")
+    seed = 2 ** 31 + 11
+    drv = fit_driver(cell, seed, float(harness.manifest()["run_seconds"]))
+    drv.setup()
+    store = cell.traffic["input_orders"]
+    assert store == 16 and len(drv.inputs) == store
+    n = len(drv.pts)
+    for s, x in enumerate(drv.inputs):
+        order = data.row_order(seed, drv.first + s, n)
+        assert np.array_equal(x, drv.pts[order])
+
+
+def test_the_window_cycles_the_store_and_each_fit_is_judged_in_its_order():
+    cell = small("fit.ss-varden-3d")
+    drv = fit_driver(cell, 2 ** 31 + 5, 0.0)
+    drv.setup()
+    store = cell.traffic["input_orders"]
+    t0 = time.perf_counter()
+    drv.cluster(drv.inputs[0], drv.eps, drv.min_pts,
+                engine=cell.traffic["engine"], device="cpu")
+    drv.run.seconds = 2 * (store + 1) * (time.perf_counter() - t0)
+    drv.window(None)
+    n, warm = drv.window_fits, drv.first
+    assert n > store
+    got = [k for k, _, _ in drv.fits[warm:warm + n]]
+    assert got == [drv.first + i % store for i in range(n)]
+    drv.close()
+    correct, attempted, failed, checks = drv.judge()
+    assert correct and attempted == n and failed == 0, checks
+    # a fit put back with another order than it got is wrong
+    _, labels, core = drv.fits[warm + store]
+    drv.fits[warm + store] = (drv.first + store, labels, core)
+    correct, _, failed, checks = drv.judge()
+    assert not correct and failed == 1
+    assert checks["core_flag_errors"]["value"] >= 1
 
 
 @pytest.mark.gpu
